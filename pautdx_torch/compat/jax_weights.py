@@ -1,0 +1,112 @@
+"""Fill a port module from the JAX package's variables, strictly.
+
+The variables are ``{"params": ..., "batch_stats": ...}`` as nested or
+dotted-flat dicts of numpy arrays (bfloat16 arrays included). The port's
+modules mirror the reference's module paths, so each JAX leaf maps to one
+entry of the module's ``state_dict()`` by its leaf name:
+
+- ``<p>.kernel``    -> ``<p>.weight``, transpose undone: a 4-d conv kernel
+  (kh, kw, in, out) becomes (out, in, kh, kw), a 2-d dense kernel (in, out)
+  becomes (out, in);
+- ``<p>.scale``     -> ``<p>.scale`` where the module has one
+  (``LearnableAffine``), else ``<p>.weight`` (BatchNorm, LayerNorm);
+- ``<p>.bias``      -> ``<p>.bias``;
+- ``<p>.embedding`` -> ``<p>.weight``;
+- batch_stats ``<p>.mean``/``<p>.var`` -> ``<p>.running_mean``/``running_var``.
+
+Loading is strict: every parameter and buffer of the module is filled and
+every JAX leaf is used, or a ``KeyError`` names what is missing and what
+is left over.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from pautdx_torch.device import resolve_device
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested or dotted-flat mapping -> {dotted.path: array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes: torch cannot read it
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _renamed(path: str, name: str) -> str:
+    """``a.b.kernel`` -> ``a.b.<name>``; a root leaf is just ``name``."""
+    prefix = path.rpartition(".")[0]
+    return f"{prefix}.{name}" if prefix else name
+
+
+def port_state_dict(variables: Mapping,
+                    target_keys) -> Dict[str, torch.Tensor]:
+    """JAX variables -> {state_dict key: tensor} keyed for a module whose
+    state_dict keys are ``target_keys``. Raises ``KeyError`` unless the two
+    key sets match exactly."""
+    target_keys = set(target_keys)
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for path, arr in flatten(variables.get("params", {})).items():
+        leaf = path.rpartition(".")[2]
+        t = _to_tensor(arr)
+        if leaf == "kernel":
+            key = _renamed(path, "weight")
+            if t.dim() == 4:
+                t = t.permute(3, 2, 0, 1)
+            elif t.dim() == 2:
+                t = t.t()
+        elif leaf == "scale":
+            key = path if path in target_keys else _renamed(path, "weight")
+        elif leaf == "embedding":
+            key = _renamed(path, "weight")
+        else:
+            key = path
+        if key in target_keys:
+            out[key] = t.contiguous()
+        else:
+            unused.append(path)
+    for path, arr in flatten(variables.get("batch_stats", {})).items():
+        leaf = path.rpartition(".")[2]
+        key = {"mean": _renamed(path, "running_mean"),
+               "var": _renamed(path, "running_var")}.get(leaf, path)
+        if key in target_keys:
+            out[key] = _to_tensor(arr)
+        else:
+            unused.append(f"batch_stats:{path}")
+    missing = sorted(target_keys - set(out))
+    if missing or unused:
+        raise KeyError(f"load_jax_variables: {len(missing)} port entries "
+                       f"without a JAX leaf (e.g. {missing[:6]}), "
+                       f"{len(unused)} JAX leaves unused (e.g. {unused[:6]})")
+    return out
+
+
+@torch.no_grad()
+def load_jax_variables(module: nn.Module, variables: Mapping,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> nn.Module:
+    """Fill ``module`` in place from the JAX variables, strictly, and move
+    it to ``device`` (default ``"cuda"``). Values are cast to each port
+    entry's dtype; a shape that differs raises."""
+    dev = resolve_device(device)
+    module.load_state_dict(
+        port_state_dict(variables, module.state_dict().keys()), strict=True)
+    return module.to(dev)
