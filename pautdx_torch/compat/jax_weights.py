@@ -8,6 +8,10 @@ entry of the module's ``state_dict()`` by its leaf name:
 - ``<p>.kernel``    -> ``<p>.weight``, transpose undone: a 4-d conv kernel
   (kh, kw, in, out) becomes (out, in, kh, kw), a 2-d dense kernel (in, out)
   becomes (out, in);
+- the 4-d kernel of an ``nn.ConvTranspose2d`` is flipped in space as well:
+  (kh, kw, in, out) becomes ``K[::-1, ::-1]`` as (in, out, kh, kw). The JAX
+  ``ConvTranspose`` (``transpose_kernel=False``) correlates the dilated
+  input with its kernel, torch's layer with the spatially flipped one;
 - ``<p>.scale``     -> ``<p>.scale`` where the module has one
   (``LearnableAffine``), else ``<p>.weight`` (BatchNorm, LayerNorm);
 - ``<p>.bias``      -> ``<p>.bias``;
@@ -56,12 +60,14 @@ def _renamed(path: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
-def port_state_dict(variables: Mapping,
-                    target_keys) -> Dict[str, torch.Tensor]:
+def port_state_dict(variables: Mapping, target_keys,
+                    transposed_keys=()) -> Dict[str, torch.Tensor]:
     """JAX variables -> {state_dict key: tensor} keyed for a module whose
-    state_dict keys are ``target_keys``. Raises ``KeyError`` unless the two
+    state_dict keys are ``target_keys``; ``transposed_keys`` are the weight
+    keys of its transposed convolutions. Raises ``KeyError`` unless the two
     key sets match exactly."""
     target_keys = set(target_keys)
+    transposed_keys = set(transposed_keys)
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for path, arr in flatten(variables.get("params", {})).items():
@@ -69,7 +75,9 @@ def port_state_dict(variables: Mapping,
         t = _to_tensor(arr)
         if leaf == "kernel":
             key = _renamed(path, "weight")
-            if t.dim() == 4:
+            if t.dim() == 4 and key in transposed_keys:
+                t = t.flip(0, 1).permute(2, 3, 0, 1)
+            elif t.dim() == 4:
                 t = t.permute(3, 2, 0, 1)
             elif t.dim() == 2:
                 t = t.t()
@@ -107,6 +115,10 @@ def load_jax_variables(module: nn.Module, variables: Mapping,
     it to ``device`` (default ``"cuda"``). Values are cast to each port
     entry's dtype; a shape that differs raises."""
     dev = resolve_device(device)
+    transposed = [f"{name}.weight" if name else "weight"
+                  for name, m in module.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)]
     module.load_state_dict(
-        port_state_dict(variables, module.state_dict().keys()), strict=True)
+        port_state_dict(variables, module.state_dict().keys(), transposed),
+        strict=True)
     return module.to(dev)

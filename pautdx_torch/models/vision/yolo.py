@@ -1,0 +1,393 @@
+"""YOLO detector/segmenter (inference): the v8 flavour, det and seg.
+
+Counterpart of ``pautdx/models/vision/yolo.py``. Module paths mirror the
+JAX module tree (``backbone.c1.m.0.cv1.conv``, ``head.cv2.0.2``,
+``proto.upsample``, ``mask_head.cv4.1.0``), so ``<path>.kernel`` there is
+``<path>.weight`` here (see ``pautdx_torch.compat.jax_weights``). Public
+functions take and return NHWC tensors like the reference; inside,
+convolutions run NCHW on the same memory (an NHWC tensor permuted to NCHW
+is ``channels_last``).
+
+Ported: ``YoloConfig`` whole, ``ConvBnSiLU`` (float path), ``Bottleneck``,
+``C2f``, ``SPPF``, the v8 ``Backbone`` and ``Neck``, ``DetectHead``,
+``ProtoNet``, ``MaskCoeffHead``, ``YOLO``, ``anchor_points``,
+``dfl_expectation`` and ``decode_boxes``. The v5u, v9c and v11 flavours
+raise ``NotImplementedError``. The mask decode is
+``pautdx_torch.ops.masks.assemble_masks``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pautdx_torch.device import resolve_device
+from pautdx_torch.models.vision.hgnet import BatchNorm, init_params
+
+STRIDES = (8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloConfig:
+    num_classes: int = 1
+    scale: str = "n"                 # n | s | m
+    flavour: str = "v8"              # v8 (C2f) | v5 (C3, v5u layout)
+    #                                | v9c (GELAN) | v11 (C3k2+C2PSA)
+    reg_max: int = 16                # DFL bins
+    num_protos: int = 32             # seg mask coefficients (nm)
+    seg: bool = False
+
+    @property
+    def depth_mult(self) -> float:
+        if self.flavour == "v9c":
+            return 1.0               # yolov9c.yaml: unscaled
+        if self.flavour == "v11":
+            return 0.5               # yolo11.yaml scales: all 0.50
+        return {"n": 1 / 3, "s": 1 / 3, "m": 2 / 3}[self.scale]
+
+    @property
+    def width_mult(self) -> float:
+        if self.flavour == "v9c":
+            return 1.0
+        if self.flavour == "v11":
+            return {"n": 0.25, "s": 0.5, "m": 1.0}[self.scale]
+        return {"n": 0.25, "s": 0.5, "m": 0.75}[self.scale]
+
+    @property
+    def max_channels(self) -> int:
+        """Ultralytics per-scale max_channels clamp (yolov8/yolo11 yaml)."""
+        if self.flavour == "v9c":
+            return 1024
+        if self.flavour == "v11":
+            return {"n": 1024, "s": 1024, "m": 512}[self.scale]
+        return {"n": 1024, "s": 1024, "m": 768}[self.scale]
+
+    @property
+    def stage_depths(self) -> Tuple[int, int, int, int]:
+        # yolov8.yaml: (3, 6, 6, 3); yolov5.yaml: (3, 6, 9, 3);
+        # yolo11.yaml: (2, 2, 2, 2)
+        if self.flavour == "v11":
+            return (2, 2, 2, 2)
+        return (3, 6, 6, 3) if self.flavour == "v8" else (3, 6, 9, 3)
+
+    @property
+    def c3k(self) -> bool:
+        """v11: C3k inner blocks everywhere at m+ scales."""
+        return self.scale in ("m", "l", "x")
+
+    def width(self, w: int) -> int:
+        # make_divisible(min(w, max_channels) * width_mult, 8)
+        return max(8, math.ceil(
+            min(w, self.max_channels) * self.width_mult / 8) * 8)
+
+    def depth(self, d: int) -> int:
+        return max(1, round(d * self.depth_mult))
+
+    @property
+    def proto_channels(self) -> int:
+        """Ultralytics Segment npr = 256 * width."""
+        return self.width(256)
+
+
+def _check_flavour(cfg: YoloConfig) -> None:
+    if cfg.flavour != "v8":
+        raise NotImplementedError(
+            f"YOLO flavour {cfg.flavour!r} is not ported yet; only v8 is "
+            f"(ROADMAP.md, queue 1, item 7)")
+
+
+class ConvBnSiLU(nn.Module):
+    """Ultralytics ``Conv``: conv (no bias) + BN (eps 1e-3) + SiLU; padding
+    (k-1)//2 unless given. The int8 serving branch and the activation-free
+    and depthwise forms of later flavours are not ported."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 1,
+                 stride: int = 1, padding: Optional[int] = None):
+        super().__init__()
+        p = (kernel - 1) // 2 if padding is None else padding
+        self.conv = nn.Conv2d(in_channels, features, kernel, stride, p,
+                              bias=False)
+        self.bn = BatchNorm(features, eps=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.bn(self.conv(x)))
+
+
+class Bottleneck(nn.Module):
+    """The C2f form: two 3x3 convs, residual when the widths match."""
+
+    def __init__(self, in_channels: int, features: int,
+                 shortcut: bool = True):
+        super().__init__()
+        self.cv1 = ConvBnSiLU(in_channels, features, 3)
+        self.cv2 = ConvBnSiLU(features, features, 3)
+        self.add = shortcut and in_channels == features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.cv2(self.cv1(x))
+        return x + h if self.add else h
+
+
+class C2f(nn.Module):
+    """v8 cross-stage partial with dense skip concatenation."""
+
+    def __init__(self, in_channels: int, features: int, n: int = 1,
+                 shortcut: bool = True):
+        super().__init__()
+        c = features // 2
+        self.cv1 = ConvBnSiLU(in_channels, 2 * c, 1)
+        self.m = nn.ModuleList(Bottleneck(c, c, shortcut) for _ in range(n))
+        self.cv2 = ConvBnSiLU((2 + n) * c, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        parts = list(self.cv1(x).chunk(2, dim=1))
+        for block in self.m:
+            parts.append(block(parts[-1]))
+        return self.cv2(torch.cat(parts, dim=1))
+
+
+class SPPF(nn.Module):
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        c = in_channels // 2
+        self.cv1 = ConvBnSiLU(in_channels, c, 1)
+        self.cv2 = ConvBnSiLU(4 * c, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pools = [self.cv1(x)]
+        for _ in range(3):
+            # 5x5 SAME max-pool: -inf padding, as nn.max_pool pads
+            pools.append(F.max_pool2d(pools[-1], 5, 1, 2))
+        return self.cv2(torch.cat(pools, dim=1))
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample of an NCHW map (each pixel repeated 2x2)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class Backbone(nn.Module):
+    def __init__(self, cfg: YoloConfig):
+        super().__init__()
+        _check_flavour(cfg)
+        w, d = cfg.width, cfg.depth
+        d1, d2, d3, d4 = cfg.stage_depths
+        self.stem = ConvBnSiLU(3, w(64), 3, 2)                        # /2
+        self.down1 = ConvBnSiLU(w(64), w(128), 3, 2)                  # /4
+        self.c1 = C2f(w(128), w(128), d(d1))
+        self.down2 = ConvBnSiLU(w(128), w(256), 3, 2)                 # /8
+        self.c2 = C2f(w(256), w(256), d(d2))
+        self.down3 = ConvBnSiLU(w(256), w(512), 3, 2)                 # /16
+        self.c3 = C2f(w(512), w(512), d(d3))
+        self.down4 = ConvBnSiLU(w(512), w(1024), 3, 2)                # /32
+        self.c4 = C2f(w(1024), w(1024), d(d4))
+        self.sppf = SPPF(w(1024), w(1024))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = self.c1(self.down1(self.stem(x)))
+        p3 = self.c2(self.down2(x))
+        p4 = self.c3(self.down3(p3))
+        p5 = self.sppf(self.c4(self.down4(p4)))
+        return p3, p4, p5
+
+
+class Neck(nn.Module):
+    """PAN, v8 layout: concat(upsample, skip) -> C2f top-down, then
+    concat(strided conv, lateral) -> C2f bottom-up."""
+
+    def __init__(self, cfg: YoloConfig):
+        super().__init__()
+        _check_flavour(cfg)
+        w, d = cfg.width, cfg.depth
+        self.td4 = C2f(w(1024) + w(512), w(512), d(3), shortcut=False)
+        self.td3 = C2f(w(512) + w(256), w(256), d(3), shortcut=False)
+        self.d3 = ConvBnSiLU(w(256), w(256), 3, 2)
+        self.bu4 = C2f(w(256) + w(512), w(512), d(3), shortcut=False)
+        self.d4 = ConvBnSiLU(w(512), w(512), 3, 2)
+        self.bu5 = C2f(w(512) + w(1024), w(1024), d(3), shortcut=False)
+
+    def forward(self, feats: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, ...]:
+        p3, p4, p5 = feats
+        h4 = self.td4(torch.cat([_upsample2x(p5), p4], dim=1))
+        h3 = self.td3(torch.cat([_upsample2x(h4), p3], dim=1))
+        n4 = self.bu4(torch.cat([self.d3(h3), h4], dim=1))
+        n5 = self.bu5(torch.cat([self.d4(n4), p5], dim=1))
+        return h3, n4, n5
+
+
+def _branch(cin: int, mid: int, out: int) -> nn.ModuleList:
+    """conv3 -> conv3 -> plain 1x1 conv with bias (``cv2.i``, ``cv3.i``,
+    ``cv4.i`` of the Ultralytics heads)."""
+    return nn.ModuleList([ConvBnSiLU(cin, mid, 3), ConvBnSiLU(mid, mid, 3),
+                          nn.Conv2d(mid, out, 1)])
+
+
+def _run(branch: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    for layer in branch:
+        x = layer(x)
+    return x
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class DetectHead(nn.Module):
+    """Decoupled anchor-free head (Ultralytics ``Detect`` widths, from the
+    P3 channel count, shared by all levels): per level a dict of NHWC
+    ``box`` (4 * reg_max DFL logits) and ``cls`` logits."""
+
+    def __init__(self, cfg: YoloConfig, channels: Sequence[int]):
+        super().__init__()
+        c2 = max(16, channels[0] // 4, 4 * cfg.reg_max)
+        c3 = max(channels[0], min(cfg.num_classes, 100))
+        self.cv2 = nn.ModuleList(_branch(c, c2, 4 * cfg.reg_max)
+                                 for c in channels)
+        self.cv3 = nn.ModuleList(_branch(c, c3, cfg.num_classes)
+                                 for c in channels)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[Dict]:
+        return [{"box": _nhwc(_run(bb, f)), "cls": _nhwc(_run(cb, f))}
+                for f, bb, cb in zip(feats, self.cv2, self.cv3)]
+
+
+class ProtoNet(nn.Module):
+    """Ultralytics ``Proto``: conv3 -> learned 2x2/s2 transposed-conv
+    upsample -> conv3 -> 1x1 Conv to num_protos."""
+
+    def __init__(self, cfg: YoloConfig, in_channels: int):
+        super().__init__()
+        c_ = cfg.proto_channels
+        self.cv1 = ConvBnSiLU(in_channels, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2)
+        self.cv2 = ConvBnSiLU(c_, c_, 3)
+        self.cv3 = ConvBnSiLU(c_, cfg.num_protos, 1)
+
+    def forward(self, p3: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(p3))))
+
+
+class MaskCoeffHead(nn.Module):
+    """Ultralytics ``Segment.cv4``: per-level 3-layer coefficient branch."""
+
+    def __init__(self, cfg: YoloConfig, channels: Sequence[int]):
+        super().__init__()
+        c4 = max(channels[0] // 4, cfg.num_protos)
+        self.cv4 = nn.ModuleList(_branch(c, c4, cfg.num_protos)
+                                 for c in channels)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [_nhwc(_run(b, f)) for f, b in zip(feats, self.cv4)]
+
+
+class YOLO(nn.Module):
+    """Full detector at inference. ``forward(images)`` takes NHWC float
+    images (B, H, W, 3), H and W multiples of 32, and returns
+    ``{"levels": [{"box", "cls"}, ...]}`` at (B, h, w, C) per stride, plus
+    with ``seg`` ``"protos"`` (B, H/4, W/4, P) and ``"mask_coeffs"``, one
+    (B, h, w, P) per level."""
+
+    def __init__(self, cfg: YoloConfig = YoloConfig(),
+                 device: Optional[Union[str, torch.device]] = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        _check_flavour(cfg)
+        self.cfg = cfg
+        w = cfg.width
+        channels = (w(256), w(512), w(1024))
+        with torch.device(resolve_device(device)):
+            self.backbone = Backbone(cfg)
+            self.neck = Neck(cfg)
+            self.head = DetectHead(cfg, channels)
+            if cfg.seg:
+                self.proto = ProtoNet(cfg, channels[0])
+                self.mask_head = MaskCoeffHead(cfg, channels)
+        init_params(self, seed)
+        self.to(dtype)
+        self.eval()
+
+    @torch.no_grad()
+    def forward(self, images: torch.Tensor) -> Dict:
+        H, W = images.shape[1:3]
+        if H % 32 or W % 32:
+            # the PAN neck's 2x upsample + skip concat needs exact doubling
+            # between levels (Ultralytics check_imgsz rounds for the same
+            # reason)
+            raise ValueError(
+                f"YOLO input size ({H}, {W}) must be a multiple of 32 "
+                f"(pad or resize; see Ultralytics check_imgsz)")
+        feats = self.backbone(images.permute(0, 3, 1, 2))
+        neck = self.neck(feats)
+        result = {"levels": self.head(neck)}
+        if self.cfg.seg:
+            result["protos"] = _nhwc(self.proto(neck[0]))
+            result["mask_coeffs"] = self.mask_head(neck)
+        return result
+
+
+# ---------------------------------------------------------------------------
+# decoding
+
+
+def anchor_points(img_size: Tuple[int, int],
+                  level_hw: Optional[Sequence[Tuple[int, int]]] = None,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All anchor centers (x, y) in pixels and the stride of each, over the
+    levels of ``STRIDES`` in (h, w) row-major order: (A, 2), (A,).
+    ``level_hw`` gives each level's actual feature-map size."""
+    device = resolve_device(device)
+    pts, strs = [], []
+    H, W = img_size
+    for i, s in enumerate(STRIDES):
+        h, w = level_hw[i] if level_hw is not None else (H // s, W // s)
+        ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * s
+        xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * s
+        grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+        pts.append(torch.stack([grid_x.reshape(-1), grid_y.reshape(-1)], -1))
+        strs.append(torch.full((h * w,), float(s), dtype=torch.float32,
+                               device=device))
+    return torch.cat(pts), torch.cat(strs)
+
+
+def dfl_expectation(box_dist: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """(..., 4*reg_max) logits, laid out (4, reg_max) -> (..., 4) expected
+    ltrb distances; the softmax is taken in float32."""
+    d = box_dist.float().reshape(box_dist.shape[:-1] + (4, reg_max))
+    p = torch.softmax(d, dim=-1)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=d.device)
+    return (p * bins).sum(-1)
+
+
+def decode_boxes(result: Dict, img_size: Tuple[int, int], cfg: YoloConfig
+                 ) -> Dict[str, torch.Tensor]:
+    """Dense decode: per-anchor xyxy boxes in image pixels and class
+    probabilities, plus mask coefficients with ``seg``:
+    {"boxes" (B, A, 4), "scores" (B, A, nc), "anchor_points" (A, 2),
+    "anchor_strides" (A,)[, "coeffs" (B, A, P)]}."""
+    levels = result["levels"]
+    pts, strs = anchor_points(
+        img_size, level_hw=[tuple(lvl["box"].shape[1:3]) for lvl in levels],
+        device=levels[0]["box"].device)
+    boxes, scores, coeffs = [], [], []
+    for i, lvl in enumerate(levels):
+        B, H, W, _ = lvl["box"].shape
+        boxes.append(dfl_expectation(lvl["box"].reshape(B, H * W, -1),
+                                     cfg.reg_max))
+        scores.append(torch.sigmoid(lvl["cls"].reshape(B, H * W, -1)))
+        if cfg.seg:
+            coeffs.append(result["mask_coeffs"][i].reshape(B, H * W, -1))
+    ltrb = torch.cat(boxes, dim=1) * strs[None, :, None]
+    out = {"boxes": torch.cat([pts[None] - ltrb[..., :2],
+                               pts[None] + ltrb[..., 2:]], dim=-1),
+           "scores": torch.cat(scores, dim=1),
+           "anchor_points": pts, "anchor_strides": strs}
+    if cfg.seg:
+        out["coeffs"] = torch.cat(coeffs, dim=1)
+    return out

@@ -24,7 +24,8 @@ from typing import Callable, Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pautdx_torch"
-SOURCES = ("aifi_attention", "onehot_gather")
+SOURCES = ("aifi_attention", "onehot_gather", "nms_suppress",
+           "assemble_masks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

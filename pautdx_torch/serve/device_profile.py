@@ -1,35 +1,39 @@
-"""Where the serving path's device time goes, on one card.
+"""Where a serving path's device time goes, on one card.
 
-    python -m pautdx_torch.serve.device_profile
+    python -m pautdx_torch.serve.device_profile          # D-FINE serving
+    python -m pautdx_torch.serve.device_profile yolo     # YOLOv8n-seg predict
 
-Builds the serving model of ``throughput.build_serving_model``, runs one
-warm 8 x 128-frame slab, times three more, then traces one more with
+Builds the serving model of ``throughput.build_serving_model`` (an
+8 x 128-frame slab) or the predictor of
+``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab), runs one
+warm slab, times three more, then traces one more with
 ``torch.profiler`` and prints, one line each: the traced slab's wall
 time, the device's busy time (the union of kernel intervals) and idle
 share of that wall, the same share of the three untraced slabs' median
 wall time, the top 30
 PyTorch operators by self device time and the top 30 kernels by device
-time. The last line is one JSON object with the same numbers. Needs a
-card; nothing falls back to the CPU.
+time. The last line is one JSON object with the same numbers. TF32 is
+off, as in ``chip_smoke.py``. Needs a card; nothing falls back to the
+CPU.
 """
 
 from __future__ import annotations
 
 import json
 import statistics
+import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
 
 from pautdx_torch.device import resolve_device
+from pautdx_torch.serve import yolo_predict
 from pautdx_torch.serve.throughput import (
     build_serving_model, make_streaming_forward, make_uint8_slab,
 )
 
-BATCH = 128
-N_STEPS = 8
 TOP = 30
 
 
@@ -53,11 +57,26 @@ def _table(rows, total_us: float) -> List[Dict]:
              "share": us / total_us} for name, n, us in rows]
 
 
-def main() -> Dict:
+def _path(name: str, dev: torch.device) -> Tuple[Callable, torch.Tensor]:
+    """The streaming loop of a serving path and the slab it runs over."""
+    if name == "dfine":
+        served = build_serving_model(device=dev, batch=128, seed=0)
+        return (make_streaming_forward(served.model),
+                make_uint8_slab(served.slab_shape(8), seed=1, device=dev))
+    if name == "yolo":
+        predictor = yolo_predict.build_yolo_predictor(device=dev, seed=0)
+        return (yolo_predict.make_yolo_stream(predictor),
+                yolo_predict.make_frame_slab(4, 32, seed=1, device=dev))
+    raise ValueError(f"device_profile: no path {name!r}; dfine or yolo")
+
+
+def main(path: str = "dfine") -> Dict:
     dev = resolve_device("cuda")
-    served = build_serving_model(device=dev, batch=BATCH, seed=0)
-    slab = make_uint8_slab(served.slab_shape(N_STEPS), seed=1, device=dev)
-    stream = make_streaming_forward(served.model)
+    # float32 stays float32, as in chip_smoke.py: no TF32 in cuDNN or GEMMs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stream, slab = _path(path, dev)
+    n_steps, batch = slab.shape[:2]
     stream(slab)
     torch.cuda.synchronize()
     # the slab's wall time without the profiler, whose own host cost
@@ -94,10 +113,10 @@ def main() -> Dict:
            for a in prof.key_averages()
            if a.device_type == DeviceType.CPU and a.self_device_time_total > 0]
 
-    frames = N_STEPS * BATCH
+    frames = n_steps * batch
     report = {
-        "card": torch.cuda.get_device_name(0),
-        "batch": BATCH, "steps": N_STEPS,
+        "path": path, "card": torch.cuda.get_device_name(0),
+        "batch": batch, "steps": n_steps,
         "wall_ms": wall_us / 1e3, "frames_per_s": frames / (wall_us / 1e6),
         "device_window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share_of_wall": 1 - busy / wall_us,
@@ -109,7 +128,7 @@ def main() -> Dict:
         "kernels": _table([(k, n, us) for k, (n, us) in by_kernel.items()],
                           kernel_us),
     }
-    print(f"{report['card']}: one slab of {N_STEPS} x {BATCH} "
+    print(f"{report['card']}: one slab of {n_steps} x {batch} "
           f"frames under the profiler: wall {report['wall_ms']:.2f} ms "
           f"({report['frames_per_s']:.1f} frames/s), device busy "
           f"{report['device_busy_ms']:.2f} ms, idle share of wall "
@@ -127,4 +146,4 @@ def main() -> Dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

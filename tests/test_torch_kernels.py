@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from pautdx_torch.ops import _build, attention, gather
+from pautdx_torch.ops import _build, attention, gather, masks, suppress
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -138,3 +138,131 @@ def test_gather_kernel_refuses_rows_it_cannot_copy(cuda):
     with pytest.raises(ValueError, match="2 bytes past"):
         gather.onehot_gather(off.view(2, 9, 8), idx)
     assert gather.LAUNCHES == before
+
+
+def _nms_inputs(B, K, seed, device):
+    """(B, K, K) IoU of random boxes, ties at the threshold and a repeated
+    row, plus a valid mask with invalid slots."""
+    from pautdx_torch.ops.nms import box_iou_matrix
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 300, (B, K, 2))
+    wh = rng.uniform(10, 120, (B, K, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                             .astype(np.float32))
+    iou = box_iou_matrix(boxes)
+    hits = torch.from_numpy(rng.integers(0, K, (2 * K, 2)))
+    iou[0, hits[:, 0], hits[:, 1]] = 0.45
+    iou[-1, 3] = iou[-1, 2]
+    valid = torch.from_numpy(rng.uniform(size=(B, K)) > 0.2)
+    return iou.to(device), valid.to(device)
+
+
+@pytest.mark.parametrize("B,K", [(32, 300), (3, 77), (2, 1024)])
+def test_nms_kernel_matches_plain(cuda, B, K):
+    """Bit for bit: the sweep only compares IoU values. K=77 leaves a
+    ragged warp; 1024 is the largest block."""
+    iou, valid = _nms_inputs(B, K, K, cuda)
+    before = suppress.LAUNCHES
+    got = suppress.nms_suppress(iou, valid, 0.45)
+    torch.cuda.synchronize()
+    assert suppress.LAUNCHES == before + 1
+    want = suppress.nms_suppress_reference(iou, valid, 0.45)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert 0 < want.sum() < valid.sum()
+
+
+def test_nms_kernel_refuses_what_it_cannot_take(cuda):
+    before = suppress.LAUNCHES
+    iou, valid = _nms_inputs(1, 1025, 0, cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        suppress.nms_suppress(iou, valid)
+    iou, valid = _nms_inputs(2, 8, 0, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        suppress.nms_suppress(iou.double(), valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        suppress.nms_suppress(iou.transpose(1, 2), valid)
+    assert suppress.LAUNCHES == before
+
+
+def _mask_inputs(B, Hp, Wp, P, K, img, seed, device):
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(B, Hp, Wp, P)).astype(np.float32)
+    coeffs = rng.normal(size=(B, K, P)).astype(np.float32)
+    xy = rng.uniform(-50, max(img), (B, K, 2))
+    wh = rng.uniform(0, max(img) / 2, (B, K, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[0, 0] = (0, 0, img[1], img[0])          # the whole frame
+    boxes[0, 1] = (100, 200, 100, 260)            # zero width
+    boxes[0, 2] = (-90, -90, -10, -10)            # off the image
+    boxes[0, 3] = (700, 10, 900, 30)              # off the image
+    return [torch.from_numpy(a).to(device) for a in (protos, coeffs, boxes)]
+
+
+@pytest.mark.parametrize("shape", [(32, 160, 160, 32, 100, (640, 640)),
+                                   (3, 24, 16, 32, 7, (96, 64))])
+def test_masks_kernel_matches_plain(cuda, shape):
+    """atol = rtol = 1e-5 in f32 with TF32 off. (32, 160, 160, 32) at
+    K=100 is the predict path's; the other is uneven in Hp, Wp and K."""
+    B, Hp, Wp, P, K, img = shape
+    protos, coeffs, boxes = _mask_inputs(B, Hp, Wp, P, K, img, sum(shape[:5]),
+                                         cuda)
+    before = masks.LAUNCHES
+    got = masks.assemble_masks(protos, coeffs, boxes, img)
+    torch.cuda.synchronize()
+    assert masks.LAUNCHES == before + 1
+    assert got.shape == (B, K, Hp, Wp) and got.dtype == torch.float32
+    want = masks.assemble_masks_reference(protos, coeffs, boxes, img)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert (got[0, 1:4] == 0).all() and (got[0, 0] > 0).all()
+
+
+def test_masks_kernel_refuses_what_it_cannot_take(cuda):
+    protos, coeffs, boxes = _mask_inputs(2, 16, 16, 12, 5, (64, 64), 0, cuda)
+    before = masks.LAUNCHES
+    with pytest.raises(ValueError, match="P=12"):
+        masks.assemble_masks(protos, coeffs, boxes, (64, 64))
+    protos, coeffs, boxes = _mask_inputs(2, 16, 16, 32, 5, (64, 64), 0, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        masks.assemble_masks(protos.half(), coeffs, boxes, (64, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        masks.assemble_masks(protos.transpose(1, 2), coeffs, boxes, (64, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        masks.assemble_masks(torch.zeros(1, 4, 4, 32, device=cuda),
+                             torch.zeros(1, 342, 32, device=cuda),
+                             torch.zeros(1, 342, 4, device=cuda), (16, 16))
+    assert masks.LAUNCHES == before
+
+
+def test_yolo_predict_takes_any_layout_and_owns_its_precision(cuda):
+    """The predict path on the card: images laid out NCHW in memory reach
+    the mask kernel (whose protos must be dense) and match dense NHWC
+    ones; global TF32 settings leave the detections unchanged."""
+    from pautdx_torch.serve import yolo_predict
+
+    predictor = yolo_predict.build_yolo_predictor(device=cuda, seed=0)
+    frames = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (2, 128, 128, 3)).astype(np.uint8)).to(cuda)
+    x = frames.float() / 255.0
+    before = (suppress.LAUNCHES, masks.LAUNCHES)
+    dense = predictor.forward(x)
+    permuted = predictor.forward(x.permute(0, 3, 1, 2).contiguous()
+                                 .permute(0, 2, 3, 1))
+    assert (suppress.LAUNCHES, masks.LAUNCHES) == (before[0] + 2,
+                                                    before[1] + 2)
+    assert permuted["masks"].shape == (2, 100, 32, 32)
+    assert torch.isfinite(permuted["masks"]).all()
+    with yolo_predict.full_f32():
+        raw = [predictor.model(t) for t in (x, x.permute(0, 3, 1, 2)
+                                            .contiguous().permute(0, 2, 3, 1))]
+    torch.testing.assert_close(raw[1]["protos"], raw[0]["protos"],
+                               atol=1e-4, rtol=1e-4)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loose = predictor(frames)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for k in ("boxes", "scores", "classes", "valid", "indices", "masks"):
+        assert torch.equal(loose[k], dense[k]), k
