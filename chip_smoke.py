@@ -1,7 +1,8 @@
 """Smoke run of pautdx_torch on one NVIDIA card: builds the CUDA kernels,
 holds each against its plain PyTorch version, then drives the D-FINE-nano
-640px serving path (the configuration of the root ``bench.py``) and the
-YOLOv8n-seg 640px predict path through their entry points.
+640px serving path (the configuration of the root ``bench.py``), the
+YOLOv8n-seg 640px predict path and the D-FINE-nano 640px training step
+through their entry points.
 
     python3 chip_smoke.py
 
@@ -37,11 +38,34 @@ Phases, one line each, in order; any failure exits non-zero:
     uint8 slab made on the card, TF32 on for the process; counts every kernel's launches over that
     run, checks the outputs are finite, times frames/s (through the kernels
     and, in turns with it, through the plain versions) and each of the two
-    kernels at the inputs that run gave it, beside its plain version.
+    kernels at the inputs that run gave it, beside its plain version;
+11. weighted gather kernel vs plain at (16, 2000, 128) f32 x (1200, 4)
+    taps, corners of weight 0 and rows past either end of the table
+    included: forward within 1e-5 of the output's largest magnitude, the
+    backward's d_flat and d_w within 1e-5 of theirs against autograd of the
+    plain version (the backward sums in atomics), and at a ragged T=37;
+12. the training config ``dfine_nano(num_labels=2)`` at 640px, batch 4,
+    f32: one forward, loss and backward through the kernels and one
+    through the plain versions from the same weights and batch: losses
+    within 1e-4, every gradient within 1e-3 in norm, BN running statistics
+    within 1e-5; the step launches the weighted gather 3 times forward and
+    3 times backward; a checkpoint save and restore gives identical
+    tensors;
+13. the training run: ``train.detector.build_dfine_trainer`` at 640px,
+    batch 16, f32, lr 1e-3, on seeded numpy batches; counts every kernel's
+    launches over one step, times steps through the kernels and, in turns
+    with them, through the plain versions (six 5-step turns per arm, the
+    median turn reported beside all of them), reads the peak device memory,
+    checks the loss is finite at every step and falls over 20 steps on one
+    batch, and times both weighted gather kernels at the inputs the step
+    gave them, beside their plain versions and ``embedding_bag``: device
+    time per call from ``torch.profiler`` (the wrappers' host time exceeds
+    these kernels' device time, so CUDA events around one call measure the
+    host), and the event-timed call beside it.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
-a record per kernel. The last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+a record per kernel, and before that the script's wall time. The last line
+is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -50,11 +74,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
@@ -74,6 +99,12 @@ YOLO_BATCH = 32
 YOLO_STEPS = 4
 MASK_TOL = 1e-5
 DETECTION_KEYS = ("boxes", "scores", "classes", "valid", "indices")
+TRAIN_BATCH = 16
+TRAIN_WARMUP = 6          # the first steps pin and cache host buffers
+TRAIN_TURN = 5            # timed steps per turn; six turns per arm
+GATHER_TOL = 1e-5         # of the largest magnitude; atomics reorder sums
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -96,7 +127,9 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, from a CUDA event pair per call."""
+    """Median time of one call between a CUDA event pair recorded around
+    it: the card's time, or the host's where the card waits for the
+    call's Python wrapper."""
     import torch
 
     for _ in range(warmup):
@@ -112,6 +145,30 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the summed durations of the kernels,
+    memsets and copies that ``reps`` calls put on the card, as
+    ``torch.profiler`` traces them, over ``reps``. Unlike :func:`time_ms`
+    it leaves out the gaps in which the card waits for the host."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    check(bool(spans), "the profiler saw no device activity")
+    return sum(spans) / reps / 1e3
 
 
 def max_abs_err(got, want) -> float:
@@ -211,18 +268,321 @@ def set_tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
 
 
-def reset_counts(wrappers: dict) -> None:
-    for mod in wrappers.values():
-        mod.LAUNCHES = 0
+def reset_counts(counters: dict) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
 
 
-def launch_counts(wrappers: dict) -> dict:
-    return {name: mod.LAUNCHES for name, mod in wrappers.items()}
+def launch_counts(counters: dict) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def relative_grad_errors(got: dict, want: dict) -> tuple:
+    """Per leaf ||got - want|| / ||want||: the worst over the leaves whose
+    gradient is above 1e-6 of the global norm, and the worst absolute error
+    of the others, whose gradient is zero up to float noise (a bias in
+    front of a train-mode BatchNorm, a key bias under the softmax) and is
+    held to that floor. Returns (worst relative, its leaf, worst noise
+    error, the floor)."""
+    floor = 1e-6 * sum(float(w.double().pow(2).sum())
+                       for w in want.values()) ** 0.5
+    worst, leaf, noise = 0.0, "", 0.0
+    for name, w in want.items():
+        err = (got[name] - w).norm().item()
+        if w.norm().item() < floor:
+            noise = max(noise, err)
+        elif err / w.norm().item() > worst:
+            worst, leaf = err / w.norm().item(), name
+    return worst, leaf, noise, floor
+
+
+def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
+                 none: dict) -> list:
+    """Phases 11-13, the D-FINE-nano training step; returns the records of
+    the two weighted gather kernels."""
+    import torch.nn.functional as F
+
+    from pautdx_torch.models.vision.dfine import DFine, dfine_nano
+    from pautdx_torch.ops import gather
+    from pautdx_torch.train.checkpoint import restore_dfine
+    from pautdx_torch.train.detector import (
+        build_dfine_trainer, dfine_metadata, dfine_objective,
+        make_train_batches,
+    )
+    from pautdx_torch.train.optim import make_optimizer
+    from pautdx_torch.train.trainer import Trainer
+
+    set_tf32(False)
+
+    # 11. weighted gather kernel vs plain, forward and backward
+    def weighted_inputs(B, L, C, T):
+        flat = torch.randn((B, L, C), generator=gen, device=dev)
+        idx = torch.randint(-3, L + 3, (B, T, 4), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((B, T, 4), generator=gen, device=dev)
+        w[:, ::7, 2] = 0.0               # a corner off the grid
+        g = torch.randn((B, T, C), generator=gen, device=dev)
+        return flat, idx, w, g
+
+    def within(got, want) -> float:
+        """max |got - want| over the largest |want|; checked <= 1e-5."""
+        return max_abs_err(got, want) / want.abs().max().item()
+
+    worst = {}
+    for B, L, C, T in ((16, 2000, 128, 1200), (3, 50, 128, 37)):
+        flat, idx, w, g = weighted_inputs(B, L, C, T)
+        fk, wk = flat.clone().requires_grad_(), w.clone().requires_grad_()
+        got = gather.weighted_gather(fk, idx, wk)
+        got.backward(g)
+        torch.cuda.synchronize()
+        fp, wp = flat.clone().requires_grad_(), w.clone().requires_grad_()
+        want = gather.weighted_gather_reference(fp, idx, wp)
+        want.backward(g)
+        errs = (within(got, want), within(fk.grad, fp.grad),
+                within(wk.grad, wp.grad))
+        check(max(errs) <= GATHER_TOL, f"weighted gather T={T}: relative "
+              f"max |err| (out, d_flat, d_w) {errs} beyond {GATHER_TOL}")
+        worst[f"T={T}"] = errs
+    print(f"[11 weighted gather] kernel vs plain, f32, (16, 2000, 128) x "
+          f"(1200, 4) taps and (3, 50, 128) x (37, 4), rows -3..L+2 "
+          f"clamped, corners of weight 0: max |err| / max |value| of (out, "
+          f"d_flat, d_w) " + ", ".join(
+              f"{k}: " + ", ".join(f"{e:.3g}" for e in v)
+              for k, v in worst.items())
+          + f" <= {GATHER_TOL} (d_flat sums in atomics)", flush=True)
+
+    # 12. the training model: one step through the kernels vs the plain
+    # versions, from the same weights and batch
+    size = 640
+    cfg = dfine_nano(num_labels=2)
+    model = DFine(cfg, device=dev, seed=0)
+    objective = dfine_objective(size, cfg)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in make_train_batches(1, 4, size, seed=5)[0].items()}
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def one_step(plain: bool):
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        reset_counts(counters)
+        with plain_kernels(wrappers) if plain else nullcontext():
+            out = model(batch["images"], train=True)
+            loss, _ = objective(out, batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in model.named_parameters()}
+        return (loss.item(), grads, dict(model.named_buffers()),
+                launch_counts(counters))
+
+    loss_k, grads_k, bufs_k, step_counts = one_step(False)
+    bufs_k = {k: v.clone() for k, v in bufs_k.items()}
+    loss_p, grads_p, bufs_p, plain_counts = one_step(True)
+    check(step_counts == dict(none, weighted_gather=3,
+                              weighted_gather_backward=3),
+          f"one training step launched {step_counts}, want the weighted "
+          f"gather 3 times forward and 3 times backward")
+    check(plain_counts == none, f"the plain step launched {plain_counts}")
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= TRAIN_LOSS_TOL, f"train loss kernels {loss_k} vs "
+          f"plain {loss_p}")
+    grad_err, grad_leaf, noise, floor = relative_grad_errors(grads_k,
+                                                             grads_p)
+    check(grad_err <= TRAIN_GRAD_TOL and noise <= floor,
+          f"gradients: worst relative {grad_err:.3g} at {grad_leaf}, "
+          f"noise leaves {noise:.3g} (floor {floor:.3g})")
+    bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
+    check(bn_err <= 1e-5, f"BN running statistics differ by {bn_err:.3g}")
+    # checkpoint round trip through the trainer's state
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    trainer = Trainer(model, objective, make_optimizer(1e-3),
+                      checkpoint_dir=ckpt_dir, input_key="images")
+    state = trainer.init(batch)
+    trainer.train_step(state, batch)
+    saved = state.state_dict()
+    trainer.ckpt.save(0, saved, metadata=dfine_metadata(cfg, size),
+                      is_best=True)
+    restored, loaded, meta = restore_dfine(ckpt_dir, "best", device=dev)
+
+    def tensors(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from tensors(v, f"{prefix}{k}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from tensors(v, f"{prefix}{i}.")
+        elif isinstance(tree, torch.Tensor):
+            yield prefix, tree
+
+    pairs = dict(tensors(loaded))
+    same = (dict(tensors(saved)).keys() == pairs.keys()
+            and all(torch.equal(v, pairs[k])
+                    for k, v in tensors(saved))
+            and all(torch.equal(v.cpu(), saved["params"].get(k, saved[
+                "batch_stats"].get(k)))
+                    for k, v in restored.state_dict().items()))
+    check(same and meta["dfine_config"]["decoder_method"] == "default",
+          "checkpoint round trip changed a tensor")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"[12 train model] dfine_nano(num_labels=2) 640px f32 batch 4, "
+          f"TF32 off: loss through the kernels {loss_k:.6f}, plain "
+          f"{loss_p:.6f} (relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
+          f"worst gradient relative error {grad_err:.3g} ({grad_leaf}) "
+          f"<= {TRAIN_GRAD_TOL}, noise-level leaves within {noise:.3g} "
+          f"(floor {floor:.3g}); BN statistics max |err| {bn_err:.3g}; "
+          f"launches per step {step_counts}; checkpoint round trip of "
+          f"{len(pairs)} tensors identical", flush=True)
+    del model, trainer, state, restored, saved, loaded, grads_k, grads_p
+
+    # 13. the training run
+    trainer = build_dfine_trainer(size=size, device=dev, seed=0)
+    batches = make_train_batches(4, TRAIN_BATCH, size, seed=6)
+    state = trainer.init(batches[0])
+    finite = []
+
+    def steps(n: int, first: int = 0) -> float:
+        """ms per step over ``n`` steps, CUDA events around them."""
+        startev = torch.cuda.Event(enable_timing=True)
+        endev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        startev.record()
+        for i in range(n):
+            _, m = trainer.train_epoch(state, [batches[(first + i) % 4]])
+            finite.append(m["loss_was_finite"] * m["update_was_finite"])
+        endev.record()
+        endev.synchronize()
+        return startev.elapsed_time(endev) / n
+
+    steps(TRAIN_WARMUP)
+    captured = {}
+    torch.cuda.reset_peak_memory_stats()
+    with first_inputs(wrappers, captured):
+        reset_counts(counters)
+        steps(1, TRAIN_WARMUP)
+        run_counts = launch_counts(counters)
+    check(run_counts == dict(none, weighted_gather=3,
+                             weighted_gather_backward=3),
+          f"one training step launched {run_counts}")
+    # in turns (kernels, plain, plain, kernels) three times, as phases 6
+    # and 10: the host-bound step spreads with the host from turn to turn
+    ms = {"kernels": [], "plain": []}
+    for arm in ("kernels", "plain", "plain", "kernels") * 3:
+        with plain_kernels(wrappers) if arm == "plain" else nullcontext():
+            ms[arm].append(steps(TRAIN_TURN, len(finite)))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(f == 1.0 for f in finite), f"non-finite steps: {finite}")
+    ms_k = statistics.median(ms["kernels"])
+    ms_p = statistics.median(ms["plain"])
+    # 20 steps on one fixed batch from fresh weights: the loss must fall
+    fresh = build_dfine_trainer(size=size, device=dev, seed=1)
+    fstate = fresh.init(batches[0])
+    fixed = [fresh.train_epoch(fstate, batches[:1])[1]["total"]
+             for _ in range(20)]
+    check(all(np.isfinite(fixed)) and fixed[-1] < fixed[0],
+          f"loss over 20 steps on one batch: {fixed}")
+    print(f"[13 training run] dfine_nano(num_labels=2) 640px f32 batch "
+          f"{TRAIN_BATCH}, lr 1e-3, TF32 off, numpy batches through the "
+          f"Trainer's pinned-memory pipeline: median {ms_k:.2f} ms/step "
+          f"({TRAIN_BATCH * 1e3 / ms_k:.1f} frames/s) through the kernels, "
+          f"turns {[round(m, 2) for m in ms['kernels']]}; median "
+          f"{ms_p:.2f} ms/step ({TRAIN_BATCH * 1e3 / ms_p:.1f} frames/s) "
+          f"through the plain versions, turns "
+          f"{[round(m, 2) for m in ms['plain']]} ({len(ms['plain'])} turns "
+          f"of {TRAIN_TURN} steps per arm, CUDA events, after "
+          f"{TRAIN_WARMUP} warm-up steps); peak memory "
+          f"{peak / 2**30:.3f} GiB; launches per step {run_counts}; "
+          f"{len(finite)} steps all finite; loss on "
+          f"one batch over 20 steps {fixed[0]:.4f} -> {fixed[-1]:.4f} "
+          f"(min {min(fixed):.4f})", flush=True)
+    del fresh, fstate
+
+    # both kernels at the inputs the training step gave them
+    flat, idx, w = (t.detach() for t in captured["weighted_gather"])
+    _, _, _, g = (t.detach() for t in captured["weighted_gather_backward"])
+    B, L, C = flat.shape
+    T, K = idx.shape[1:]
+    with torch.no_grad():
+        got = gather.weighted_gather(flat, idx, w)
+        want = gather.weighted_gather_reference(flat, idx, w)
+        d_got = gather.weighted_gather_backward(flat, idx, w, g)
+        d_want = gather.weighted_gather_backward_reference(flat, idx, w, g)
+    rel = (within(got, want), within(d_got[0], d_want[0]),
+           within(d_got[1], d_want[1]))
+    check(max(rel) <= GATHER_TOL, f"training-step gather relative errors "
+          f"(out, d_flat, d_w) {rel}")
+    fwd_err = max_abs_err(got, want)
+    bwd_err = max(max_abs_err(d_got[0], d_want[0]),
+                  max_abs_err(d_got[1], d_want[1]))
+    rows = torch.unique(idx.long().clamp(0, L - 1)
+                        + L * torch.arange(B, device=dev)[:, None, None])
+    table_bytes = rows.numel() * C * 4          # the rows the taps touch
+    tap_bytes = 2 * idx.numel() * 4             # idx and w
+    out_bytes = B * T * C * 4
+    # embedding_bag over fixed bags of K rows: the same function
+    table = flat.reshape(B * L, C)
+    bag_idx = (idx.long().clamp(0, L - 1) + L * torch.arange(
+        B, device=dev)[:, None, None]).reshape(B * T, K)
+    bag_w = w.reshape(B * T, K)
+
+    def bag(tab, wts):
+        return F.embedding_bag(bag_idx, tab, mode="sum",
+                               per_sample_weights=wts)
+
+    tab_r = table.clone().requires_grad_()
+    w_r = bag_w.clone().requires_grad_()
+    bag_out = bag(tab_r, w_r)
+    bag_g = g.reshape(B * T, C)
+    records = []
+    for name, line, err, nbytes, flops, fn, plain, library in (
+            ("weighted_gather", 134, fwd_err,
+             table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
+             lambda: gather.weighted_gather(flat, idx, w),
+             lambda: gather.weighted_gather_reference(flat, idx, w),
+             lambda: bag(table, bag_w)),
+            ("weighted_gather_backward", 196, bwd_err,
+             out_bytes + table_bytes + tap_bytes + B * L * C * 4
+             + idx.numel() * 4, 4 * K * C * B * T,
+             lambda: gather.weighted_gather_backward(flat, idx, w, g),
+             lambda: gather.weighted_gather_backward_reference(
+                 flat, idx, w, g),
+             lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
+                                         retain_graph=True))):
+        with torch.no_grad() if name == "weighted_gather" else nullcontext():
+            t_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(
+                library)
+            call_ms = time_ms(fn)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = flops / PEAK_F32_FLOP_PER_S
+        records.append(dict(
+            name=name, route="cuda",
+            source="pautdx_torch/csrc/weighted_gather.cu",
+            replaces=f"pautdx/ops/pallas_gather.py:{line}",
+            launches=run_counts[name], max_abs_err=err, ms=t_ms,
+            plain_ms=p_ms, call_ms=call_ms,
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=l_ms,
+            shape=f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+                  f"{rows.numel()} distinct rows of {B * L}, {nbytes} bytes, "
+                  f"{flops} FLOP; library: embedding_bag over bags of {K}"
+                  + (", its backward to both inputs"
+                     if name != "weighted_gather" else "")))
+    for r in records:
+        print(f"[13 {r['name']}] {r['shape']}: device time per call "
+              f"(profiler) kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); one call "
+              f"through the wrapper, CUDA events, {r['call_ms']:.4f} ms; "
+              f"{r['launches']} launches per step, max |err| "
+              f"{r['max_abs_err']:.3g}", flush=True)
+    return records
 
 
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
              "NVIDIA card and does not run on the CPU")
@@ -247,8 +607,16 @@ def main() -> None:
         postprocess,
     )
 
-    wrappers = {"aifi_attention": attention, "onehot_gather": gather,
-                "nms_suppress": suppress, "assemble_masks": masks}
+    # each kernel wrapper: its module and the counter it adds to
+    counters = {"aifi_attention": (attention, "LAUNCHES"),
+                "onehot_gather": (gather, "LAUNCHES"),
+                "nms_suppress": (suppress, "LAUNCHES"),
+                "assemble_masks": (masks, "LAUNCHES"),
+                "weighted_gather": (gather, "WEIGHTED_LAUNCHES"),
+                "weighted_gather_backward": (gather,
+                                             "WEIGHTED_BACKWARD_LAUNCHES")}
+    wrappers = {name: mod for name, (mod, _) in counters.items()}
+    none = dict.fromkeys(counters, 0)
 
     dev = torch.device("cuda")
     set_tf32(False)
@@ -313,13 +681,16 @@ def main() -> None:
     # 5. the full model, f32, kernels vs plain versions
     model = fold_uint8_stem(DFine(serving_config(), device=dev, seed=0))
     frames = make_uint8_slab((4, 80, 80, 192), seed=1, device=dev)
-    reset_counts(wrappers)
-    out_k = model(frames)
+    reset_counts(counters)
+    with torch.inference_mode():
+        out_k = model(frames)
     torch.cuda.synchronize()
     launches = (attention.LAUNCHES, gather.LAUNCHES)
-    check(launches == (1, 3), f"one f32 forward launched (attention, "
-          f"gather) = {launches}, want (1, 3)")
-    with plain_kernels(wrappers):
+    check(launch_counts(counters) == dict(none, aifi_attention=1,
+                                          onehot_gather=3),
+          f"one f32 forward launched {launch_counts(counters)}, want "
+          f"attention 1 and gather 3")
+    with plain_kernels(wrappers), torch.inference_mode():
         out_p = model(frames)
     check(attention.LAUNCHES == 1 and gather.LAUNCHES == 3,
           "the plain forward launched a kernel")
@@ -342,12 +713,12 @@ def main() -> None:
     torch.cuda.synchronize()
     captured = {}
     with first_inputs(wrappers, captured):
-        reset_counts(wrappers)
+        reset_counts(counters)
         logits, boxes, finite = stream(slab)
         torch.cuda.synchronize()
-        counts = launch_counts(wrappers)
-    check(counts == {"aifi_attention": N_STEPS, "onehot_gather": 3 * N_STEPS,
-                     "nms_suppress": 0, "assemble_masks": 0},
+        counts = launch_counts(counters)
+    check(counts == dict(none, aifi_attention=N_STEPS,
+                         onehot_gather=3 * N_STEPS),
           f"serving run launches {counts}, want {N_STEPS} and "
           f"{3 * N_STEPS}")
     check(bool(finite), "serving outputs are not all finite")
@@ -485,13 +856,13 @@ def main() -> None:
     predictor = build_yolo_predictor(device=dev, seed=0)
     frames = make_frame_slab(1, 4, seed=3, device=dev)[0]
     out = predictor.model(frames.to(torch.float32) / 255.0)
-    reset_counts(wrappers)
+    reset_counts(counters)
     det_k = postprocess(out, (IMG, IMG), predictor.cfg)
     torch.cuda.synchronize()
-    post_counts = launch_counts(wrappers)
+    post_counts = launch_counts(counters)
     with plain_kernels(wrappers):
         det_p = postprocess(out, (IMG, IMG), predictor.cfg)
-    check(launch_counts(wrappers) == post_counts,
+    check(launch_counts(counters) == post_counts,
           "the plain post-process launched a kernel")
     differ = [k for k in DETECTION_KEYS if not torch.equal(det_k[k],
                                                            det_p[k])]
@@ -503,12 +874,11 @@ def main() -> None:
     # whole process, as a caller may leave it, predict() still gives the
     # full-f32 detections above
     set_tf32(True)
-    reset_counts(wrappers)
+    reset_counts(counters)
     det = predictor(frames)
     torch.cuda.synchronize()
-    per_predict = launch_counts(wrappers)
-    want = {"aifi_attention": 0, "onehot_gather": 0, "nms_suppress": 1,
-            "assemble_masks": 1}
+    per_predict = launch_counts(counters)
+    want = dict(none, nms_suppress=1, assemble_masks=1)
     check(per_predict == want and post_counts == want,
           f"one predict launched {per_predict}, want {want}")
     check(all(torch.equal(det[k], det_k[k]) for k in DETECTION_KEYS + (
@@ -538,12 +908,11 @@ def main() -> None:
     torch.cuda.synchronize()
     captured = {}
     with first_inputs(wrappers, captured):
-        reset_counts(wrappers)
+        reset_counts(counters)
         det, finite = ystream(yslab)
         torch.cuda.synchronize()
-        ycounts = launch_counts(wrappers)
-    want = {"aifi_attention": 0, "onehot_gather": 0,
-            "nms_suppress": YOLO_STEPS, "assemble_masks": YOLO_STEPS}
+        ycounts = launch_counts(counters)
+    want = dict(none, nms_suppress=YOLO_STEPS, assemble_masks=YOLO_STEPS)
     check(ycounts == want, f"predict run launches {ycounts}, want {want}")
     check(bool(finite), "predict outputs are not all finite")
     check(tuple(det["boxes"].shape) == (YOLO_BATCH, 100, 4)
@@ -634,7 +1003,12 @@ def main() -> None:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} "
               f"launches over the slab, max |err| {r['max_abs_err']:.3g}",
               flush=True)
+    del predictor, yslab, ystream, captured, det
 
+    kernels += train_phases(torch, dev, gen, counters, wrappers, none)
+
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          f"in all, the kernels' build included", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

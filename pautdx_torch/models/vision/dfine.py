@@ -1,5 +1,6 @@
-"""D-FINE detector at inference: HGNetV2 backbone, hybrid encoder (AIFI +
-FPN/PAN), two-stage query selection and the FDR decoder with LQE.
+"""D-FINE detector: HGNetV2 backbone, hybrid encoder (AIFI + FPN/PAN),
+two-stage query selection and the FDR decoder with LQE, at inference and
+in training.
 
 Counterpart of ``pautdx/models/vision/dfine.py``. Module paths mirror it,
 so weights move leaf by leaf (``pautdx_torch.compat.jax_weights``). The
@@ -13,10 +14,14 @@ and box decoding stay float32. ``Dense``/``LayerNorm`` compute in the
 promoted dtype of input and weight, as the reference's do, so a float32
 input to bf16 weights (the query position head) computes in float32.
 
-Ported for this slice: head-shared sampling points with
-``decoder_method="discrete"`` and the fused AIFI attention kernel. The
-bilinear decoder, per-head points and the denoising queries of training
-raise ``NotImplementedError``.
+Ported: head-shared sampling points with the bilinear
+``decoder_method="default"`` (the ``weighted_gather`` kernel, forward and
+backward) and the discrete one (the ``onehot_gather`` kernel, inference
+only), the fused AIFI attention kernel (inference only), and the training
+mode of ``forward(images, train=True)``: BatchNorm on batch statistics,
+dropout, and every ``stop_gradient`` of the reference as a ``.detach()`` at
+the same place. Per-head sampling points and the denoising queries raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -301,15 +306,23 @@ class SCDown(nn.Module):
         return self.conv2(self.conv1(x))
 
 
-class TorchMHA(nn.Module):
-    """Separate-projection MHA with additive pos embeddings on q/k.
-    ``fused=True`` (the AIFI layer) routes the attention through the
-    ``ops.attention`` kernel; otherwise explicit matmul + softmax."""
+def _dropout(rate: float) -> nn.Module:
+    """``nn.Dropout`` where the reference drops (rate > 0), else nothing."""
+    return nn.Dropout(rate) if rate > 0 else nn.Identity()
 
-    def __init__(self, d: int, num_heads: int, fused: bool = False):
+
+class TorchMHA(nn.Module):
+    """Separate-projection MHA with additive pos embeddings on q/k and
+    dropout on the softmaxed weights in training. ``fused=True`` (the AIFI
+    layer) routes the attention through the ``ops.attention`` kernel in
+    eval only (``dfine.py:380``); training keeps the matmul chain."""
+
+    def __init__(self, d: int, num_heads: int, fused: bool = False,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.fused = fused
+        self.attn_drop = _dropout(attention_dropout)
         self.q_proj = Dense(d, d)
         self.k_proj = Dense(d, d)
         self.v_proj = Dense(d, d)
@@ -324,14 +337,14 @@ class TorchMHA(nn.Module):
         q = self.q_proj(qk_in) * (dh ** -0.5)
         k = self.k_proj(qk_in)
         v = self.v_proj(x)
-        if self.fused:
+        if self.fused and not self.training:
             return self.out_proj(attention.aifi_attention(q, k, v, h))
 
         def split(t):
             return t.reshape(B, N, h, dh).transpose(1, 2)
 
         logits = torch.matmul(split(q), split(k).transpose(-1, -2))
-        w = torch.softmax(logits, dim=-1)
+        w = self.attn_drop(torch.softmax(logits, dim=-1))
         out = torch.matmul(w, split(v)).transpose(1, 2).reshape(B, N, d)
         return self.out_proj(out)
 
@@ -343,17 +356,22 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d = cfg.encoder_hidden_dim
         self.self_attn = TorchMHA(d, cfg.encoder_attention_heads,
-                                  fused=cfg.encoder_fused_attn)
+                                  fused=cfg.encoder_fused_attn,
+                                  attention_dropout=cfg.attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d)
         self.fc1 = Dense(d, cfg.encoder_ffn_dim)
         self.fc2 = Dense(cfg.encoder_ffn_dim, d)
         self.final_layer_norm = LayerNorm(d)
         self.approximate = "tanh" if cfg.encoder_act_approx else "none"
+        self.drop = _dropout(cfg.dropout)
+        self.act_drop = _dropout(cfg.activation_dropout)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        x = self.self_attn_layer_norm(x + self.self_attn(x, pos=pos))
+        x = self.self_attn_layer_norm(
+            x + self.drop(self.self_attn(x, pos=pos)))
         h = F.gelu(self.fc1(x), approximate=self.approximate)
-        return self.final_layer_norm(x + self.fc2(h))
+        return self.final_layer_norm(
+            x + self.drop(self.fc2(self.act_drop(h))))
 
 
 class HybridEncoder(nn.Module):
@@ -474,8 +492,10 @@ class DeformableAttention(nn.Module):
         super().__init__()
         if not cfg.decoder_shared_points:
             raise NotImplementedError(
-                "per-head sampling points (decoder_shared_points=False) are "
-                "not ported yet (ROADMAP.md, queue 1, item 6)")
+                "per-head sampling points (decoder_shared_points=False, the "
+                "per-head ms_deformable_attention) are not ported yet; "
+                "head-shared points take decoder_method 'default' "
+                "(bilinear) or 'discrete' (ROADMAP.md, queue 1, item 6)")
         self.cfg = cfg
         total = sum(cfg.num_points_list)
         self.sampling_offsets = Dense(cfg.d_model, total * 2)
@@ -514,33 +534,38 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: DFineConfig):
         super().__init__()
         d = cfg.d_model
-        self.self_attn = TorchMHA(d, cfg.decoder_attention_heads)
+        self.self_attn = TorchMHA(d, cfg.decoder_attention_heads,
+                                  attention_dropout=cfg.attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d)
         self.encoder_attn = DeformableAttention(cfg)
         self.gateway = Gate(d)
         self.fc1 = Dense(d, cfg.decoder_ffn_dim)
         self.fc2 = Dense(cfg.decoder_ffn_dim, d)
         self.final_layer_norm = LayerNorm(d)
+        self.drop = _dropout(cfg.dropout)
+        self.act_drop = _dropout(cfg.activation_dropout)
 
     def forward(self, hidden: torch.Tensor, pos: torch.Tensor,
                 value_levels: List[torch.Tensor],
                 reference_points: torch.Tensor) -> torch.Tensor:
         hidden = self.self_attn_layer_norm(
-            hidden + self.self_attn(hidden, pos=pos))
+            hidden + self.drop(self.self_attn(hidden, pos=pos)))
         cross = self.encoder_attn(hidden + pos, value_levels,
                                   reference_points)
-        hidden = self.gateway(hidden, cross)
-        h = self.fc2(F.relu(self.fc1(hidden)))
+        hidden = self.gateway(hidden, self.drop(cross))
+        h = self.fc2(self.act_drop(F.relu(self.fc1(hidden))))
         return self.final_layer_norm(
-            (hidden + h).clamp(-65504.0, 65504.0))
+            (hidden + self.drop(h)).clamp(-65504.0, 65504.0))
 
 
 class DFine(nn.Module):
-    """Full detector at inference. ``forward(images)`` takes NHWC images
+    """Full detector. ``forward(images, train=False)`` takes NHWC images
     (or, with ``backbone.stem_pre_patchified``, (B, H/p, W/p, p*p*C)
     slabs, uint8 allowed after ``fold_uint8_stem``) and returns a dict
     with ``logits`` (B, Q, num_labels) and ``pred_boxes`` (B, Q, 4)
-    normalized cxcywh, float32."""
+    normalized cxcywh, float32, plus the intermediates the training
+    criterion reads. The forward runs with autograd as the caller set it:
+    serving wraps its calls in ``torch.inference_mode()``."""
 
     def __init__(self, cfg: DFineConfig = DFineConfig(),
                  device: Optional[Union[str, torch.device]] = None,
@@ -620,14 +645,18 @@ class DFine(nn.Module):
                 c.max_num_bins, c.up, c.reg_scale).to(device)
         return self._consts[key]
 
-    @torch.no_grad()
-    def forward(self, images: torch.Tensor,
+    def forward(self, images: torch.Tensor, train: bool = False,
                 denoising: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, Any]:
+        """``train`` sets the module's mode (``nn.Module.train``), the one
+        switch that BatchNorm, dropout and the fused attention read, as the
+        reference's ``__call__(images, train)`` does per call."""
         if denoising is not None:
             raise NotImplementedError(
-                "denoising queries belong to training, which is not ported "
-                "yet (ROADMAP.md, queue 1, item 9)")
+                "denoising queries (losses/denoising.py) are not ported yet "
+                "(ROADMAP.md, queue 1, item 9)")
+        if train != self.training:
+            self.train(train)
         c = self.cfg
         m = self.model
         feats = m.backbone.model.forward_nchw(images)
@@ -653,39 +682,41 @@ class DFine(nn.Module):
                 t, 1, topk_ind[..., None].expand(-1, -1, t.shape[-1]))
 
         sel_anchors = take(anchors.expand(B, -1, -1))
-        target = take(out_mem)
-        ref_unact = m.enc_bbox_head(target).float() + sel_anchors
+        ref_unact = m.enc_bbox_head(take(out_mem)).float() + sel_anchors
         enc_topk_logits = take(enc_class)
         enc_topk_bboxes = torch.sigmoid(ref_unact)
+        target = take(out_mem).detach()
+        init_ref = ref_unact.detach()
 
         value_levels = [s.reshape(s.shape[0], s.shape[1], s.shape[2],
                                   c.decoder_attention_heads, c.head_dim)
                         for s in nhwc]
         project = self.project(dev)
-        ref_points = torch.sigmoid(ref_unact)
+        ref_points = torch.sigmoid(init_ref)
         hidden = target
-        out_logits, out_boxes = [], []
+        out_logits, out_boxes, out_corners, out_refs = [], [], [], []
         pred_corners_undetach = 0.0
         output_detach = 0.0
         ref_points_initial = None
         eval_idx = c.eval_idx if c.eval_idx >= 0 else c.decoder_layers + c.eval_idx
         dec = m.decoder
         for i, layer in enumerate(dec.layers):
-            pos = dec.query_pos_head(ref_points).clamp(-10.0, 10.0)
+            ref_detach = ref_points.detach()
+            pos = dec.query_pos_head(ref_detach).clamp(-10.0, 10.0)
             pos = pos.to(hidden.dtype)
-            hidden = layer(hidden, pos, value_levels, ref_points)
+            hidden = layer(hidden, pos, value_levels, ref_detach)
             if i == 0:
                 new_ref = torch.sigmoid(dec.pre_bbox_head(hidden)
-                                        + inverse_sigmoid(ref_points))
-                ref_points_initial = new_ref
+                                        + inverse_sigmoid(ref_detach))
+                ref_points_initial = new_ref.detach()
             pred_corners = self.bbox_embed[i](hidden + output_detach) \
                 + pred_corners_undetach
             inter_ref = distance2bbox(
                 ref_points_initial,
                 integral(pred_corners, project, c.max_num_bins), c.reg_scale)
             pred_corners_undetach = pred_corners
-            ref_points = inter_ref
-            output_detach = hidden
+            ref_points = inter_ref.detach()
+            output_detach = hidden.detach()
             scores = self.class_embed[i](hidden)
             if i == 0:
                 out_logits.append(scores)
@@ -693,12 +724,16 @@ class DFine(nn.Module):
             scores = dec.lqe_layers[i](scores, pred_corners)
             out_logits.append(scores)
             out_boxes.append(inter_ref)
+            out_corners.append(pred_corners)
+            out_refs.append(ref_points_initial)
         return {
             "logits": out_logits[eval_idx + 1],
             "pred_boxes": out_boxes[eval_idx + 1],
             "last_hidden_state": hidden,
             "intermediate_logits": out_logits,
             "intermediate_boxes": out_boxes,
+            "intermediate_corners": out_corners,
+            "initial_references": out_refs,
             "enc_topk_logits": enc_topk_logits,
             "enc_topk_bboxes": enc_topk_bboxes,
             "project": project,

@@ -1,4 +1,4 @@
-"""HGNetV2 backbone, the D-FINE conv encoder (inference).
+"""HGNetV2 backbone, the D-FINE conv encoder.
 
 Counterpart of ``pautdx/models/vision/hgnet.py``. Module paths mirror it,
 so ``<path>.kernel`` there is ``<path>.weight`` here (see
@@ -108,11 +108,24 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
+BN_MOMENTUM = 0.99   # the reference's BatchNorms all keep this default
+
+
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with running statistics, eps 1e-5
-    (the reference's BatchNorm at ``use_running_average=True``). Unlike
-    ``nn.BatchNorm2d`` it has no ``num_batches_tracked`` buffer, which no
-    JAX leaf would fill."""
+    """BatchNorm over dim 1 with the reference's semantics (its BatchNorm,
+    eps 1e-5 by default as in ``pautdx/models/vision/hgnet.py:156``, and
+    momentum ``BN_MOMENTUM``), switched by ``module.train()`` alone:
+
+    - eval: normalise with the running statistics;
+    - train: normalise with the batch's mean and biased variance over
+      every dim but 1, in f32, and update the running statistics as
+      ``r = m * r + (1 - m) * batch`` (m = ``BN_MOMENTUM``), with the
+      BIASED variance.
+
+    ``nn.BatchNorm2d`` differs on two counts: its ``momentum`` is the
+    weight of the batch (1 - m here), and it updates the running
+    variance with the unbiased one. Unlike it, this module has no
+    ``num_batches_tracked`` buffer, which no JAX leaf would fill."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -123,8 +136,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        # F.batch_norm folds the UNBIASED batch variance u = v * n / (n-1)
+        # into the running one: r' = (1 - m) r + m u. Running it on
+        # r * n / (n-1) and scaling the result by (n-1) / n lands on the
+        # reference's (1 - m) r + m v, in two C-element passes instead of
+        # another reduction over x. The scaled copy is autograd's to keep.
+        scaled = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, scaled, self.weight,
+                           self.bias, True, 1.0 - BN_MOMENTUM, self.eps)
+        torch.mul(scaled.detach(), (n - 1) / n, out=self.running_var)
+        return out
 
 
 class LearnableAffine(nn.Module):
@@ -297,7 +322,8 @@ class PatchifyStem(nn.Module):
 
 class HGNetV2(nn.Module):
     """NHWC image (or patch slab) -> the ``cfg.out_indices`` feature maps,
-    NHWC."""
+    NHWC. Built in eval mode, as ``DFine`` is: ``train()`` switches its
+    BatchNorms to batch statistics."""
 
     def __init__(self, cfg: HGNetConfig = HGNetConfig(),
                  device: Optional[Union[str, torch.device]] = None,
@@ -308,6 +334,7 @@ class HGNetV2(nn.Module):
             self._build(cfg)
         init_params(self, seed)
         self.to(dtype)
+        self.eval()
 
     def _build(self, cfg: HGNetConfig) -> None:
         start = cfg.start_stage

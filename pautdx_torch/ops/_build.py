@@ -8,7 +8,8 @@ loaded. All missing libraries are compiled by parallel ``nvcc`` processes.
 A failed build raises with the compiler's output; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception. :func:`refuse_grad`
+is the check of the wrappers whose kernels have no backward yet.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pautdx_torch"
 SOURCES = ("aifi_attention", "onehot_gather", "nms_suppress",
-           "assemble_masks")
+           "assemble_masks", "weighted_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,3 +113,14 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"pautdx_torch: {what} launch failed with "
                            f"cudaError {rc}")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and any input needs a gradient: ``what``'s
+    kernel fills its output outside autograd and has no backward yet, so
+    its result would silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward yet and would cut the "
+            f"autograd graph; call it under torch.no_grad() or "
+            f"torch.inference_mode(), or use {what}_reference for gradients")

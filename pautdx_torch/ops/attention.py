@@ -3,7 +3,9 @@ its plain PyTorch version and its launch counter.
 
 Counterpart of ``pautdx/ops/pallas_attention.py``. On a CPU tensor the
 wrappers run the plain version; on a CUDA tensor they launch the kernel or
-raise. ``LAUNCHES`` counts kernel launches and nothing else.
+raise. ``LAUNCHES`` counts kernel launches and nothing else. The kernel
+serves inference and has no backward: the wrappers refuse inputs that need
+a gradient while grad mode is on, whatever the device.
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
     """q/k/v (B, h, N, dh), q pre-scaled -> context (B, h, N, dh).
     Inference only: no mask, no dropout."""
     _validate(q, k, v, 4)
+    _build.refuse_grad("fused_attention", q, k, v)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v)
     B, H, N, dh = q.shape
@@ -105,6 +108,7 @@ def aifi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D % num_heads:
         raise ValueError(f"attention: D={D} not divisible by "
                          f"num_heads={num_heads}")
+    _build.refuse_grad("aifi_attention", q, k, v)
     if q.device.type == "cpu":
         return aifi_attention_reference(q, k, v, num_heads)
     dh = D // num_heads

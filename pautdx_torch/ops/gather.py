@@ -1,26 +1,44 @@
-"""Row gather of the discrete deformable attention: the CUDA kernel
-``csrc/onehot_gather.cu``, its plain PyTorch version and its launch counter.
+"""Row gathers of the deformable attention: the CUDA kernels
+``csrc/onehot_gather.cu`` and ``csrc/weighted_gather.cu``, their plain
+PyTorch versions and their launch counters.
 
-Counterpart of the forward of
-``pautdx/ops/pallas_gather.py::pallas_onehot_gather``. On a CPU tensor the
-wrapper runs the plain version; on a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches and nothing else. The backward
-(a scatter-add) belongs to the training path and is not ported yet.
+- :func:`onehot_gather` is the counterpart of the forward of
+  ``pautdx/ops/pallas_gather.py::pallas_onehot_gather`` (discrete decoder).
+  Its backward (a scatter-add) is not ported yet, so the wrapper refuses
+  inputs that need a gradient while grad mode is on, whatever the device.
+- :func:`weighted_gather` is the counterpart of
+  ``pallas_gather.py::pallas_weighted_gather`` with its VJP (bilinear
+  decoder). It is a ``torch.autograd.Function`` whose forward and backward
+  both launch ``csrc/weighted_gather.cu`` on the card.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. ``LAUNCHES`` (the one-hot gather),
+``WEIGHTED_LAUNCHES`` and ``WEIGHTED_BACKWARD_LAUNCHES`` count kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
+WEIGHTED_LAUNCHES = 0
+WEIGHTED_BACKWARD_LAUNCHES = 0
 
 # flat, idx, out, B, L, T, row bytes, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong, ctypes.c_void_p])
+# flat, idx, w, out, B, L, T, K, C, stream
+_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+# flat, idx, w, g, d_flat, d_w, B, L, T, K, C, stream
+_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
 
 
 def onehot_gather_reference(flat: torch.Tensor,
@@ -43,6 +61,7 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f" got {tuple(flat.shape)} and {tuple(idx.shape)}")
     if idx.device != flat.device:
         raise ValueError("onehot_gather: flat and idx on different devices")
+    _build.refuse_grad("onehot_gather", flat)
     if flat.device.type == "cpu":
         return onehot_gather_reference(flat, idx)
     if flat.device.type != "cuda":
@@ -75,3 +94,139 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         LAUNCHES += 1
     _build.check(rc, "onehot_gather")
     return out
+
+
+# ------------------------------------------------------------------ weighted
+
+
+def weighted_gather_reference(flat: torch.Tensor, idx: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+    """flat (B, L, C); idx (B, T, K); w (B, T, K) -> (B, T, C) =
+    sum_k w[..., k] * flat[b, clip(idx[..., k], 0, L-1)], with autograd's
+    gradients to ``flat`` and ``w``."""
+    B, T, K = idx.shape
+    L = flat.shape[1]
+    i = idx.clamp(0, L - 1).long().reshape(B, T * K, 1)
+    rows = torch.take_along_dim(flat, i, dim=1).reshape(B, T, K, -1)
+    return (rows * w[..., None].to(rows.dtype)).sum(dim=2)
+
+
+def weighted_gather_backward_reference(
+        flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+        g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of ``pallas_gather.py:196-210`` written out: d_flat is the
+    scatter-add of w_k * g into the clipped rows, d_w[..., k] =
+    <g, flat[clip(idx_k)]>."""
+    B, T, K = idx.shape
+    L, C = flat.shape[1:]
+    i = idx.clamp(0, L - 1).long()
+    rows = i + L * torch.arange(B, device=idx.device)[:, None, None]
+    d_flat = torch.zeros((B * L, C), dtype=g.dtype, device=g.device)
+    d_flat.index_add_(0, rows.reshape(-1),
+                      (w[..., None].to(g.dtype) * g[:, :, None, :])
+                      .reshape(-1, C))
+    picked = flat.reshape(B * L, C)[rows.reshape(-1)].reshape(B, T, K, C)
+    d_w = (picked.to(g.dtype) * g[:, :, None, :]).sum(-1)
+    return d_flat.reshape(B, L, C).to(flat.dtype), d_w.to(w.dtype)
+
+
+def _validate_weighted(flat, idx, w) -> None:
+    if (flat.dim() != 3 or idx.dim() != 3 or idx.shape != w.shape
+            or idx.shape[0] != flat.shape[0]):
+        raise ValueError(f"weighted_gather: want flat (B, L, C), idx and w "
+                         f"(B, T, K), got {tuple(flat.shape)}, "
+                         f"{tuple(idx.shape)}, {tuple(w.shape)}")
+    if idx.device != flat.device or w.device != flat.device:
+        raise ValueError("weighted_gather: inputs on different devices")
+    if flat.shape[1] == 0:
+        raise ValueError("weighted_gather: empty table")
+
+
+def _check_kernel_inputs(*tensors) -> None:
+    flat, idx = tensors[:2]
+    if flat.device.type != "cuda":
+        raise RuntimeError(f"weighted_gather: no kernel for {flat.device}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"weighted_gather: idx must be int32, got {idx.dtype}")
+    floats = (tensors[0],) + tensors[2:]
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError("weighted_gather: the kernel takes float32 flat, w "
+                        f"and gradients, got {[t.dtype for t in floats]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("weighted_gather: inputs must be contiguous")
+    C = flat.shape[2]
+    if C % 4 or any(t.data_ptr() % 16 for t in (flat,) + tensors[3:]):
+        raise ValueError(f"weighted_gather: the kernel moves float4 pieces; "
+                         f"got C={C} or a row table off 16-byte alignment")
+
+
+def weighted_gather_backward(flat: torch.Tensor, idx: torch.Tensor,
+                             w: torch.Tensor, g: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: (d_flat, d_w) of :func:`weighted_gather` for
+    the output gradient g (B, T, C). d_flat's sum over taps runs in
+    atomics, in an order that changes from run to run."""
+    global WEIGHTED_BACKWARD_LAUNCHES
+    _check_kernel_inputs(flat, idx, w, g)
+    B, L, C = flat.shape
+    T, K = idx.shape[1:]
+    d_flat = torch.zeros_like(flat)
+    d_w = torch.empty_like(w)
+    if g.numel() == 0:
+        return d_flat, d_w.zero_()
+    fn = _build.function("weighted_gather", "pautdx_weighted_gather_backward",
+                         _WEIGHTED_BWD_ARGTYPES)
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(),
+                d_flat.data_ptr(), d_w.data_ptr(), B, L, T, K, C, stream)
+        WEIGHTED_BACKWARD_LAUNCHES += 1
+    _build.check(rc, "weighted_gather_backward")
+    return d_flat, d_w
+
+
+def _weighted_forward(flat, idx, w) -> torch.Tensor:
+    global WEIGHTED_LAUNCHES
+    _check_kernel_inputs(flat, idx, w)
+    B, L, C = flat.shape
+    T, K = idx.shape[1:]
+    out = torch.empty((B, T, C), dtype=flat.dtype, device=flat.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("weighted_gather", "pautdx_weighted_gather",
+                         _WEIGHTED_ARGTYPES)
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                B, L, T, K, C, stream)
+        WEIGHTED_LAUNCHES += 1
+    _build.check(rc, "weighted_gather")
+    return out
+
+
+class _WeightedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, idx, w):
+        ctx.save_for_backward(flat, idx, w)
+        return _weighted_forward(flat, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, idx, w = ctx.saved_tensors
+        # looked up in the module at every call, like the forward wrapper
+        d_flat, d_w = weighted_gather_backward(flat, idx, w, g.contiguous())
+        return d_flat, None, d_w
+
+
+def weighted_gather(flat: torch.Tensor, idx: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """flat (B, L, C) f32; idx (B, T, K) int32; w (B, T, K) f32 ->
+    (B, T, C) = sum_k w[..., k] * flat[b, clip(idx[..., k], 0, L-1)].
+
+    Differentiable in ``flat`` and ``w``. Any T and K; on the card C must
+    be a multiple of 4 (C=128 on the training path) and every tensor
+    contiguous."""
+    _validate_weighted(flat, idx, w)
+    if flat.device.type == "cpu":
+        return weighted_gather_reference(flat, idx, w)
+    return _WeightedGather.apply(flat, idx, w)

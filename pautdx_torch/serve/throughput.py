@@ -117,17 +117,20 @@ def build_serving_model(device: Optional[Union[str, torch.device]] = None,
 
 def make_streaming_forward(model: DFine) -> Callable:
     """``stream(slab)`` runs ``model`` over each (B, ...) micro-batch of a
-    (n_steps, B, ...) slab and returns the last step's logits and boxes
-    and a device flag that every step's outputs were finite."""
+    (n_steps, B, ...) slab under ``torch.inference_mode()`` and returns the
+    last step's logits and boxes and a device flag that every step's
+    outputs were finite."""
 
     def stream(slab: torch.Tensor):
-        finite = torch.ones((), dtype=torch.bool, device=slab.device)
-        logits = boxes = None
-        for step in range(slab.shape[0]):
-            out = model(slab[step])
-            logits, boxes = out["logits"], out["pred_boxes"]
-            finite &= torch.isfinite(logits).all() & torch.isfinite(boxes).all()
-        return logits, boxes, finite
+        with torch.inference_mode():
+            finite = torch.ones((), dtype=torch.bool, device=slab.device)
+            logits = boxes = None
+            for step in range(slab.shape[0]):
+                out = model(slab[step])
+                logits, boxes = out["logits"], out["pred_boxes"]
+                finite &= (torch.isfinite(logits).all()
+                           & torch.isfinite(boxes).all())
+            return logits, boxes, finite
 
     return stream
 

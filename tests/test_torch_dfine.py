@@ -229,7 +229,8 @@ def test_serving_slice_matches_reference(jax_model):
     jout = jdf.DFine(cfg).apply(jthr.fold_uint8_stem(variables),
                                 jnp.asarray(xp), train=False)
     model = tthr.fold_uint8_stem(_port_model(variables))
-    tout = model(torch.from_numpy(tthr.prepatchify_uint8(img, PATCH)))
+    with torch.inference_mode():
+        tout = model(torch.from_numpy(tthr.prepatchify_uint8(img, PATCH)))
     assert tout["logits"].shape == (2, 150, 2)
     assert tout["pred_boxes"].dtype == torch.float32
     _assert_same_detections(tout["logits"].numpy(),

@@ -234,6 +234,92 @@ def test_masks_kernel_refuses_what_it_cannot_take(cuda):
     assert masks.LAUNCHES == before
 
 
+def _weighted_inputs(B, L, C, T, seed, device):
+    """A (B, L, C) table and (B, T, 4) corners and weights with rows off
+    the table (clamped by the kernel) and corners of weight 0."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.normal(size=(B, L, C)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-2, L + 3, (B, T, 4))
+                           .astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0, 1, (B, T, 4)).astype(np.float32))
+    w[:, ::5, 1] = 0.0
+    return flat.to(device), idx.to(device), w.to(device)
+
+
+@pytest.mark.parametrize("shape", [(16, 2000, 128, 1200), (3, 50, 128, 37),
+                                   (2, 30, 8, 5)])
+def test_weighted_gather_kernel_matches_plain(cuda, shape):
+    """Forward and both gradients against the plain version and its
+    autograd, to 1e-5 of the largest magnitude: the forward sums four
+    products in another order, and the backward's scatter runs in atomics
+    whose order changes from run to run. (16, 2000, 128) x 1200 taps is
+    the training path's; T=37 and C=8 are ragged."""
+    from pautdx_torch.ops import gather
+
+    flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(shape[0], shape[3], shape[2])).astype(np.float32)).to(cuda)
+    before = (gather.WEIGHTED_LAUNCHES, gather.WEIGHTED_BACKWARD_LAUNCHES)
+    fk, wk = flat.clone().requires_grad_(), w.clone().requires_grad_()
+    got = gather.weighted_gather(fk, idx, wk)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (gather.WEIGHTED_LAUNCHES, gather.WEIGHTED_BACKWARD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    fp, wp = flat.clone().requires_grad_(), w.clone().requires_grad_()
+    want = gather.weighted_gather_reference(fp, idx, wp)
+    want.backward(g)
+    for a, b in ((got, want), (fk.grad, fp.grad), (wk.grad, wp.grad)):
+        tol = 1e-5 * b.abs().max().item()
+        torch.testing.assert_close(a.detach(), b.detach(), atol=tol, rtol=0)
+    # the backward kernel alone against the written-out VJP
+    d_flat, d_w = gather.weighted_gather_backward(flat, idx, w, g)
+    r_flat, r_w = gather.weighted_gather_backward_reference(flat, idx, w, g)
+    torch.testing.assert_close(d_flat, r_flat, rtol=0,
+                               atol=1e-5 * r_flat.abs().max().item())
+    torch.testing.assert_close(d_w, r_w, rtol=0,
+                               atol=1e-5 * r_w.abs().max().item())
+
+
+def test_weighted_gather_kernel_refuses_what_it_cannot_take(cuda):
+    from pautdx_torch.ops import gather
+
+    flat, idx, w = _weighted_inputs(2, 10, 128, 6, 0, cuda)
+    before = gather.WEIGHTED_LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        gather.weighted_gather(flat.bfloat16(), idx, w)
+    with pytest.raises(TypeError, match="int32"):
+        gather.weighted_gather(flat, idx.long(), w)
+    with pytest.raises(ValueError, match="float4"):
+        gather.weighted_gather(flat[..., :6].contiguous(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.weighted_gather(flat.transpose(1, 2).contiguous()
+                               .transpose(1, 2), idx, w)
+    assert gather.WEIGHTED_LAUNCHES == before
+
+
+def test_inference_kernels_refuse_grad_mode(cuda):
+    """The one-hot gather and the attention kernel have no backward: under
+    grad mode an input that needs a gradient raises instead of cutting the
+    graph, and nothing is launched; under no_grad they run."""
+    from pautdx_torch.ops import gather
+
+    flat = _randn((2, 10, 128), 0, cuda, torch.float32).requires_grad_()
+    idx = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    q = _randn((2, 40, 128), 1, cuda, torch.float32).requires_grad_()
+    before = (gather.LAUNCHES, attention.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gather.onehot_gather(flat, idx)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.aifi_attention(q, q, q, 8)
+    assert (gather.LAUNCHES, attention.LAUNCHES) == before
+    with torch.no_grad():
+        gather.onehot_gather(flat, idx)
+        attention.aifi_attention(q, q, q, 8)
+    assert (gather.LAUNCHES, attention.LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+
+
 def test_yolo_predict_takes_any_layout_and_owns_its_precision(cuda):
     """The predict path on the card: images laid out NCHW in memory reach
     the mask kernel (whose protos must be dense) and match dense NHWC

@@ -160,8 +160,10 @@ def test_discrete_indices_truncate_and_clamp():
 
 
 def test_deformable_other_methods_raise():
+    """'default' (bilinear) and 'discrete' are the methods; any other name
+    raises."""
     levels, loc, w = _deformable_inputs(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="'default'"):
         deformable.ms_deformable_attention_shared(
             [torch.from_numpy(v) for v in levels], torch.from_numpy(loc),
-            torch.from_numpy(w), [4, 4], method="default")
+            torch.from_numpy(w), [4, 4], method="bicubic")
