@@ -9,9 +9,11 @@ through their entry points.
 Phases, one line each, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
-2. build: ``nvcc`` of every ``pautdx_torch/csrc/*.cu``, all at once;
-3. attention kernel vs plain at (128, 8, 400, 16), f32 and bf16, and at a
-   ragged N=37;
+2. build: ``nvcc`` of every ``pautdx_torch/csrc/*.cu``, all at once, and
+   each kernel's registers, static shared memory and spills from the
+   ``-Xptxas -v`` log;
+3. attention kernel vs plain at (128, 8, 400, 16), f32 (CUDA cores) and
+   bf16 (tensor cores), and at a ragged N=37;
 4. gather kernel vs plain at (128, 2000, 128) x 1200 taps, bf16 and f32,
    indices out of range included: bit for bit;
 5. the full model in f32 at batch 4, once through the kernels and once
@@ -22,7 +24,10 @@ Phases, one line each, in order; any failure exits non-zero:
    the outputs are finite, and times frames/s (through the kernels and,
    in turns with it, through the plain versions), each kernel at the
    inputs that run gave it, its plain version and one library call that
-   computes the same function;
+   computes the same function (device times per call from
+   ``torch.profiler``, the event-timed call through the wrapper beside
+   them; attention's bound counts its exponentials on the SFUs at the
+   card's ``clocks.max.sm``);
 7. NMS sweep kernel vs plain at (32, 300) candidates, ties at the
    threshold and invalid slots included: bit for bit;
 8. mask decode kernel vs plain at (32, 160, 160, 32) protos, K=100, boxes
@@ -38,7 +43,9 @@ Phases, one line each, in order; any failure exits non-zero:
     uint8 slab made on the card, TF32 on for the process; counts every kernel's launches over that
     run, checks the outputs are finite, times frames/s (through the kernels
     and, in turns with it, through the plain versions) and each of the two
-    kernels at the inputs that run gave it, beside its plain version;
+    kernels at the inputs that run gave it, beside its plain version
+    (device times, as in phase 6; no single PyTorch call computes either
+    function, and the record says so);
 11. weighted gather kernel vs plain at (16, 2000, 128) f32 x (1200, 4)
     taps, corners of weight 0 and rows past either end of the table
     included: forward within 1e-5 of the output's largest magnitude, the
@@ -74,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -90,6 +98,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_F32_FLOP_PER_S = 67e12
+# exponentials per clock per SM from the special-function units (the CUDA
+# programming guide's throughput table, compute capability 9.0)
+SFU_EXP_PER_CLK_PER_SM = 16
 
 BATCH = 128
 N_STEPS = 8
@@ -126,6 +137,51 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def short_name(sym: str) -> str:
+    """A mangled kernel name's last component, with its raw template
+    arguments: ``_ZN12_GLOBAL__N_111attn_kernelIfLi16EEEv..`` ->
+    ``attn_kernel<fLi16>``."""
+    i, name = (3 if sym.startswith("_ZN") else 2), sym
+    while i < len(sym) and sym[i].isdigit():
+        n = re.match(r"\d+", sym[i:]).group()
+        i += len(n)
+        name, i = sym[i:i + int(n)], i + int(n)
+    if sym[i:i + 1] == "I":
+        name += "<" + sym[i + 1:sym.find("E", i)] + ">"
+    return name
+
+
+def ptxas_summary(log: str) -> list:
+    """"kernel: registers, static shared bytes, spill bytes" of each entry
+    function in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], "", 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = short_name(entry.group(1))
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if stores:
+            spill = int(stores.group(1)) + int(stores.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append(f"{name}: {used.group(1)} registers, "
+                        f"{smem.group(1) if smem else 0} B shared, "
+                        f"{spill} B spilled")
+            name, spill = "", 0
+    return rows
+
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """Median time of one call between a CUDA event pair recorded around
     it: the card's time, or the host's where the card waits for the
@@ -147,11 +203,12 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, parts: dict = None) -> float:
     """Device time of one call: the summed durations of the kernels,
     memsets and copies that ``reps`` calls put on the card, as
     ``torch.profiler`` traces them, over ``reps``. Unlike :func:`time_ms`
-    it leaves out the gaps in which the card waits for the host."""
+    it leaves out the gaps in which the card waits for the host. Fills
+    ``parts``, if given, with the ms per call of each kernel name."""
     import torch
     from torch.autograd import DeviceType
 
@@ -160,15 +217,54 @@ def device_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    check(bool(spans), "the profiler saw no device activity")
-    return sum(spans) / reps / 1e3
+    # a trace now and then comes back without its device events (seen
+    # once in some hundred traces of this script on the card): trace again
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+    check(bool(events), "the profiler saw no device activity")
+    for e in events if parts is not None else ():
+        name = re.split(r"[<(]", e.name.replace("(anonymous namespace)::",
+                                                ""))[0]
+        name = (name.split("::")[-1].split() or ["?"])[-1]
+        parts[name] = parts.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / reps / 1e3
+    return sum(e.time_range.end - e.time_range.start
+               for e in events) / reps / 1e3
+
+
+def kernel_times(fn, plain, library=None) -> dict:
+    """A kernel record's times: the device time per call of the kernel
+    (``ms``), of its plain version and of the library call, and one call
+    through the wrapper between CUDA events (``call_ms``), which includes
+    the host time of the wrapper where the card waits for it; ``parts``:
+    the kernel's device time by the name of each launch."""
+    parts = {}
+    return dict(ms=device_ms(fn, parts=parts), parts=parts,
+                plain_ms=device_ms(plain),
+                library_ms=None if library is None else device_ms(library),
+                call_ms=time_ms(fn))
+
+
+def print_record(phase: str, r: dict, per: str) -> None:
+    library = (f"library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None
+               else f"no library call ({r['library_note']})")
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
+    print(f"[{phase} {r['name']}] {r['shape']}: device time per call "
+          f"(profiler) kernel {r['ms']:.4f} ms ({parts}), plain "
+          f"{r['plain_ms']:.4f} "
+          f"ms, {library}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+          f"one call through the wrapper, CUDA events, {r['call_ms']:.4f} "
+          f"ms; {r['launches']} launches {per}, max |err| "
+          f"{r['max_abs_err']:.3g}", flush=True)
 
 
 def max_abs_err(got, want) -> float:
@@ -639,6 +735,11 @@ def main() -> None:
     print(f"[2 build] {len(_build.SOURCES)} kernels "
           f"({', '.join(_build.SOURCES)}): {nvcc_s:.2f} s of parallel nvcc, "
           f"{time.perf_counter() - t0:.2f} s to build and load", flush=True)
+    for name in _build.SOURCES:
+        log = _build.lib_path(name).with_suffix(".log")
+        print(f"[2 ptxas {name}] " + "; ".join(
+            ptxas_summary(log.read_text()) if log.is_file()
+            else ["no build log"]), flush=True)
 
     # 3. attention kernel vs plain
     worst = {}
@@ -660,9 +761,10 @@ def main() -> None:
         worst[f"{name} N={n}"] = err
     print("[3 attention] kernel vs plain at (128, 8, N, 16), max |err| "
           + ", ".join(f"{k}: {v:.3g}" for k, v in worst.items())
-          + "; tolerance atol=rtol 1e-5 in f32 (TF32 off), 2e-2 in bf16 "
-          "(the plain version rounds the probabilities to bf16 before P.V, "
-          "the kernel keeps them f32)", flush=True)
+          + "; tolerance atol=rtol 1e-5 in f32 (CUDA cores, TF32 off), "
+          "2e-2 in bf16 (tensor cores; the plain version rounds the "
+          "normalized probabilities to bf16 before P.V, the kernel the "
+          "unnormalized ones)", flush=True)
 
     # 4. gather kernel vs plain
     L, T = 2000, 1200
@@ -764,22 +866,31 @@ def main() -> None:
     F = torch.nn.functional
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * B * heads * N * N * dh
+    # one exponential per score; the SFUs give 16 a clock on each SM
+    exps = B * heads * N * N
+    f_sm = max_sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "operations": flops / PEAK_BF16_FLOP_PER_S,
+             "exp": exps / (SFU_EXP_PER_CLK_PER_SM * n_sm * f_sm)}
     kernels.append(dict(
         name="aifi_attention", route="cuda",
         source="pautdx_torch/csrc/aifi_attention.cu",
         replaces="pautdx/ops/pallas_attention.py:35",
         launches=counts["aifi_attention"], max_abs_err=err,
-        ms=time_ms(lambda: attention.aifi_attention(q, k, v, heads)),
-        plain_ms=time_ms(
-            lambda: attention.aifi_attention_reference(q, k, v, heads)),
-        bound_ms=1e3 * max(nbytes / PEAK_BYTES_PER_S,
-                           flops / PEAK_BF16_FLOP_PER_S),
-        bound_by=("bytes" if nbytes / PEAK_BYTES_PER_S
-                  >= flops / PEAK_BF16_FLOP_PER_S else "operations"),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, scale=1.0)),
+        **kernel_times(
+            lambda: attention.aifi_attention(q, k, v, heads),
+            lambda: attention.aifi_attention_reference(q, k, v, heads),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+        bound_ms=1e3 * max(terms.values()),
+        bound_by=max(terms, key=terms.get),
         shape=f"q/k/v {tuple(q.shape)} {str(q.dtype).split('.')[1]}, "
-              f"{heads} heads, |out| max {peak:.3g}, limit {tol:.3g}"))
+              f"{heads} heads, |out| max {peak:.3g}, limit {tol:.3g}; "
+              f"bound terms (ms) " + ", ".join(
+                  f"{k} {1e3 * t:.4f}" for k, t in terms.items())
+              + f" ({nbytes} bytes, {flops} FLOP, {exps} exponentials "
+              f"over {n_sm} SMs x {SFU_EXP_PER_CLK_PER_SM} x "
+              f"{f_sm / 1e6:.0f} MHz clocks.max.sm)"))
 
     # one-hot row gather at the inputs the serving run gave it
     flat, idx = captured["onehot_gather"]
@@ -798,18 +909,15 @@ def main() -> None:
         source="pautdx_torch/csrc/onehot_gather.cu",
         replaces="pautdx/ops/pallas_gather.py:36",
         launches=counts["onehot_gather"], max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: gather.onehot_gather(flat, idx)),
-        plain_ms=time_ms(lambda: gather.onehot_gather_reference(flat, idx)),
+        **kernel_times(lambda: gather.onehot_gather(flat, idx),
+                       lambda: gather.onehot_gather_reference(flat, idx),
+                       lambda: flat[b_idx, idx_long]),
         bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_ms=time_ms(lambda: flat[b_idx, idx_long]),
         shape=f"flat {tuple(flat.shape)} {str(flat.dtype).split('.')[1]}, "
-              f"idx {tuple(idx.shape)}, {rows} distinct rows"))
+              f"idx {tuple(idx.shape)}, {rows} distinct rows, {nbytes} "
+              f"bytes"))
     for r in kernels:
-        print(f"[6 {r['name']}] {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{r['launches']} launches over the slab, max |err| "
-              f"{r['max_abs_err']:.3g}", flush=True)
+        print_record("6", r, "over the slab")
     del served, slab, stream, captured, logits, boxes
 
     # 7. NMS sweep kernel vs plain
@@ -955,14 +1063,16 @@ def main() -> None:
         source="pautdx_torch/csrc/nms_suppress.cu",
         replaces="pautdx/ops/pallas_nms.py:30",
         launches=ycounts["nms_suppress"], max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: suppress.nms_suppress(iou, valid, thr)),
-        plain_ms=time_ms(
+        **kernel_times(
+            lambda: suppress.nms_suppress(iou, valid, thr),
             lambda: suppress.nms_suppress_reference(iou, valid, thr)),
         bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_ms=None,
+        library_note="no single PyTorch call computes the greedy sweep "
+                     "over a precomputed IoU matrix (torchvision's nms "
+                     "takes boxes and is not part of PyTorch)",
         shape=f"iou {tuple(iou.shape)} f32, {int(valid.sum())} valid, "
               f"{int(want.sum())} kept, {nbytes} bytes needed of "
-              f"{iou.numel() * 4} ({Kn} serial steps)"))
+              f"{iou.numel() * 4} ({Kn} candidates an image)"))
 
     # the mask decode at the inputs the predict run gave it
     protos, coeffs, mboxes, img_size = captured["assemble_masks"]
@@ -987,22 +1097,20 @@ def main() -> None:
         source="pautdx_torch/csrc/assemble_masks.cu",
         replaces="pautdx/ops/pallas_mask.py:33",
         launches=ycounts["assemble_masks"], max_abs_err=err,
-        ms=time_ms(lambda: masks.assemble_masks(protos, coeffs, mboxes,
-                                                img_size)),
-        plain_ms=time_ms(lambda: masks.assemble_masks_reference(
-            protos, coeffs, mboxes, img_size)),
+        **kernel_times(
+            lambda: masks.assemble_masks(protos, coeffs, mboxes, img_size),
+            lambda: masks.assemble_masks_reference(protos, coeffs, mboxes,
+                                                   img_size)),
         bound_ms=1e3 * max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
+        library_note="no single PyTorch call computes sigmoid(coeffs . "
+                     "protos) cropped to each box; a batched matmul leaves "
+                     "out the sigmoid and the crop",
         shape=f"protos {tuple(protos.shape)}, coeffs {tuple(coeffs.shape)} "
               f"f32 (protos contiguous: {protos.is_contiguous()}), {nbytes} "
               f"bytes, {flops} FLOP inside the boxes"))
     for r in kernels[2:]:
-        print(f"[10 {r['name']}] {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, no library call, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} "
-              f"launches over the slab, max |err| {r['max_abs_err']:.3g}",
-              flush=True)
+        print_record("10", r, "over the slab")
     del predictor, yslab, ystream, captured, det
 
     kernels += train_phases(torch, dev, gen, counters, wrappers, none)
@@ -1011,8 +1119,9 @@ def main() -> None:
           f"in all, the kernels' build included", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "launches", "max_abs_err", "ms", "call_ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "library_note") if k in r}
         for r in kernels]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

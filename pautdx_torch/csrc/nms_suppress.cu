@@ -6,59 +6,165 @@
 // keep starts as valid; in order i = 0 .. K-1, if keep[i] > 0, every j > i
 // with iou[i, j] > thr gets keep[j] = 0. Output: keep (K,) f32.
 //
-// The kernel only compares values of its input against the threshold and
-// copies valid, so it is bit-identical to the plain PyTorch loop beside it
-// (pautdx_torch/ops/suppress.py).
+// The kernels only compare values of the input against the threshold and
+// copy valid, so the result is bit-identical to the plain PyTorch loop
+// beside it (pautdx_torch/ops/suppress.py).
 //
-// What bounds it on the H100: neither bytes nor operations but the K serial
-// steps. The work at the YOLO predict shape (32 images, K = 300) is at most
-// 32 x 300^2 x 4 B = 11.5 MB of IoU, read once, about 3.4 us at 3.35 TB/s;
-// the sweep has a dependency chain of K steps, each a barrier and a load.
+// What bounds it on the H100: neither bytes nor operations but the chain
+// of dependent steps. At the YOLO predict shape (32 images, K = 300) the
+// IoU is 11.5 MB, of which the rows still alive need 2.6 MB (0.8 us at
+// 3.35 TB/s); but whether row i acts depends on every alive row before it.
+// A block-per-image sweep with one thread per candidate pays a block
+// barrier and a load for each of the K steps, on 32 of the 132 SMs.
 //
-// Design: one block per image, one thread per candidate j (the block is K
-// rounded up to a warp, so K <= 1024). The keep mask lives in shared
-// memory. Step i: each thread loads iou[i, j] for its own j before the
-// barrier (row i is read coalesced, and the load's latency overlaps the
-// wait), then after the barrier reads keep[i] as a broadcast and clears its
-// own keep[j]. Only thread j writes keep[j], and keep[i] is not written in
-// step i, so one barrier per step orders everything.
+// Design, the parallel bitmask of GPU NMS, in two launches (the wrapper
+// gives them a (B, K, ceil(K / 32)) int32 scratch from torch.empty and
+// counts the pair as one launch):
+// - mask_kernel, over the whole card: a warp per (image, row i). For each
+//   32-bit word w it sets the bits of j in [32w, 32w + 32) with j > i,
+//   j < K and iou[i, j] > thr: every load of the row is issued before any
+//   is compared (coalesced 128-byte pieces, from the diagonal's word on),
+//   then one __ballot_sync per word. An invalid row never acts and gets
+//   no bits; words below the diagonal are 0.
+// - sweep_kernel, a block per image: the image's words (12 KB at K = 300)
+//   are copied into shared memory; then one warp sweeps. Lane w holds word
+//   w of the removed set (K <= 1024, so at most 32 words). For each word
+//   w in order, the alive bits (valid and not yet removed) are broadcast
+//   by one shuffle and resolved in candidate order by 32 register
+//   selects: candidate 32w + b, if alive, clears the later candidates of
+//   word w that it removes, a word that lane b loaded before the chain
+//   began and that a shuffle hands over off the chain. Then every lane
+//   ORs the rows of the word's kept candidates into its removed word.
+//   The dependent chain is a select per candidate and a shuffle per
+//   word, with no block barrier and no memory access on it.
+//   Then keep[j] = removed ? 0 : valid[j], written by the whole block.
+// Two first versions were slower than the one-thread-per-candidate sweep
+// this replaces (PERF.md): one did both phases in one block per
+// image, which left the mask to 32 SMs; one walked the kept boxes with
+// __ffs, a shared-memory load on the chain for each of them.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxK = 1024;
+constexpr int kMaxWords = kMaxK / 32;
+constexpr int kRowsPerBlock = 8;      // mask_kernel: a warp per row
+constexpr int kSweepThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void suppress_kernel(const float* __restrict__ iou,
-                                const float* __restrict__ valid,
-                                float* __restrict__ keep, int K, float thr) {
-  __shared__ float s_keep[kMaxK];
-  const int j = threadIdx.x;
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+mask_kernel(const float* __restrict__ iou, const float* __restrict__ valid,
+            unsigned* __restrict__ mask, int K, int W, float thr) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const long long b = blockIdx.y;
+  if (i >= K) return;                      // warp-uniform
+  const float* row = iou + (b * K + i) * K;
+  unsigned* out = mask + (b * K + i) * W;
+  if (!(valid[b * K + i] > 0.0f)) {        // never acts: no bits
+    if (lane < W) out[lane] = 0u;
+    return;
+  }
+  // every load of the row issued before any is used: words from the
+  // diagonal on, an index past the row clamped to its last element
+  float x[kMaxWords];
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w)
+    if (w < W && w >= (i >> 5)) x[w] = __ldg(row + min(32 * w + lane, K - 1));
+  unsigned hits = 0u;                      // bit w: this lane's j of word w
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    const int j = 32 * w + lane;
+    if (w < W && w >= (i >> 5) && j > i && j < K && x[w] > thr)
+      hits |= 1u << w;
+  }
+  unsigned word = 0u;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    if (w >= W) break;                     // warp-uniform
+    const unsigned bits = __ballot_sync(kFull, hits >> w & 1u);
+    if (lane == w) word = bits;
+  }
+  if (lane < W) out[lane] = word;
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_kernel(const unsigned* __restrict__ mask,
+             const float* __restrict__ valid, float* __restrict__ keep,
+             int K, int W) {
+  extern __shared__ unsigned s_mask[];     // K rows of W words
+  __shared__ unsigned s_valid[kMaxWords];
+  __shared__ unsigned s_removed[kMaxWords];
+  const int lane = threadIdx.x & 31;
   const long long b = blockIdx.x;
-  const float* rows = iou + b * K * K;
-  if (j < K) s_keep[j] = valid[b * K + j];
-  for (int i = 0; i < K; ++i) {
-    const float v = (j > i && j < K) ? __ldg(rows + (long long)i * K + j)
-                                     : 0.0f;
-    __syncthreads();
-    if (j > i && j < K && s_keep[i] > 0.0f && v > thr) s_keep[j] = 0.0f;
+  const float* vb = valid + b * K;
+  const unsigned* mb = mask + b * K * W;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < K * W; e += kSweepThreads) s_mask[e] = mb[e];
+  for (int w = threadIdx.x >> 5; w < W; w += kSweepThreads / 32) {
+    const int j = 32 * w + lane;
+    const unsigned bits = __ballot_sync(kFull, j < K && vb[j] > 0.0f);
+    if (lane == 0) s_valid[w] = bits;
   }
   __syncthreads();
-  if (j < K) keep[b * K + j] = s_keep[j];
+
+  if (threadIdx.x < 32) {
+    const unsigned my_valid = lane < W ? s_valid[lane] : 0u;
+    unsigned removed = 0u;
+    for (int w = 0; w < W; ++w) {
+      // lane l: the later candidates of word w that candidate 32w + l
+      // removes; then the word's alive bits resolved in order, with the
+      // shuffles off the dependent chain
+      const int mine = 32 * w + lane;
+      const unsigned diag = mine < K ? s_mask[mine * W + w] : 0u;
+      unsigned alive = __shfl_sync(kFull, my_valid & ~removed, w);
+#pragma unroll
+      for (int bit = 0; bit < 32; ++bit) {
+        const unsigned r = __shfl_sync(kFull, diag, bit);
+        if (alive >> bit & 1u) alive &= ~r;
+      }
+      // the kept candidates of word w remove their rows from every word
+#pragma unroll
+      for (int bit = 0; bit < 32; ++bit)
+        if ((alive >> bit & 1u) && lane < W)
+          removed |= s_mask[(32 * w + bit) * W + lane];
+    }
+    if (lane < W) s_removed[lane] = removed;
+  }
+  __syncthreads();
+
+  for (int j = threadIdx.x; j < K; j += kSweepThreads)
+    keep[b * K + j] = (s_removed[j >> 5] >> (j & 31) & 1u) ? 0.0f : vb[j];
 }
 
 }  // namespace
 
-// iou (B, K, K), valid (B, K), keep (B, K): f32, contiguous, 1 <= K <= 1024.
-// Returns cudaGetLastError() of the launch.
+// iou (B, K, K), valid (B, K), keep (B, K): f32, contiguous,
+// 1 <= K <= 1024; mask: B * K * ceil(K / 32) words of scratch. Returns
+// the first non-zero cudaError_t of the two launches.
 extern "C" int pautdx_nms_suppress(const void* iou, const void* valid,
-                                   void* keep, int B, int K, float thr,
-                                   void* stream) {
+                                   void* keep, void* mask, int B, int K,
+                                   float thr, void* stream) {
   if (B == 0) return cudaSuccess;
   if (B < 0 || K < 1 || K > kMaxK) return cudaErrorInvalidValue;
-  const int threads = (K + 31) / 32 * 32;
-  suppress_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int W = (K + 31) / 32;
+  const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, B);
+  mask_kernel<<<grid, kRowsPerBlock * 32, 0, s>>>(
       static_cast<const float*>(iou), static_cast<const float*>(valid),
-      static_cast<float*>(keep), K, thr);
+      static_cast<unsigned*>(mask), K, W, thr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = sizeof(unsigned) * (size_t)K * W;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(sweep_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  sweep_kernel<<<B, kSweepThreads, smem, s>>>(
+      static_cast<const unsigned*>(mask), static_cast<const float*>(valid),
+      static_cast<float*>(keep), K, W);
   return cudaGetLastError();
 }

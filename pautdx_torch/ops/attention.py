@@ -1,11 +1,13 @@
 """Fused AIFI self-attention: the CUDA kernel ``csrc/aifi_attention.cu``,
 its plain PyTorch version and its launch counter.
 
-Counterpart of ``pautdx/ops/pallas_attention.py``. On a CPU tensor the
-wrappers run the plain version; on a CUDA tensor they launch the kernel or
-raise. ``LAUNCHES`` counts kernel launches and nothing else. The kernel
-serves inference and has no backward: the wrappers refuse inputs that need
-a gradient while grad mode is on, whatever the device.
+Counterpart of ``pautdx/ops/pallas_attention.py``. bf16 runs on the
+tensor cores (``mma.sync``), f32 on the CUDA cores; the dtype alone picks
+the path. On a CPU tensor the wrappers run the plain version; on a CUDA
+tensor they launch the kernel or raise. ``LAUNCHES`` counts kernel
+launches and nothing else. The kernel serves inference and has no
+backward: the wrappers refuse inputs that need a gradient while grad mode
+is on, whatever the device.
 """
 
 from __future__ import annotations
@@ -72,6 +74,10 @@ def _launch(q, k, v, B: int, H: int, N: int, dh: int,
                          f"for {_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention: q/k/v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("attention: bf16 q/k/v must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte row halves)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

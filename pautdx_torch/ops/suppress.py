@@ -2,9 +2,12 @@
 its plain PyTorch version and its launch counter.
 
 Counterpart of ``pautdx/ops/pallas_nms.py::nms_suppress``, batched: the
-JAX package sweeps one image per call, this sweeps (B, K, K) at once. On a
-CPU tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches and nothing else.
+JAX package sweeps one image per call, this sweeps (B, K, K) at once, as a
+bitmask: the suppression words of every row are built in parallel, then
+one warp per image walks the kept boxes (two CUDA launches, counted as
+one). On a CPU tensor the wrapper runs the plain version; on a CUDA
+tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -16,10 +19,10 @@ import torch
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
-MAX_K = 1024                    # one thread per candidate, one block
+MAX_K = 1024                    # the sweep warp's 32 lanes x 32-bit words
 
-# iou, valid, keep, B, K, thr, stream
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+# iou, valid, keep, mask scratch, B, K, thr, stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -63,17 +66,21 @@ def nms_suppress(iou: torch.Tensor, valid: torch.Tensor,
         raise ValueError("nms_suppress: iou must be contiguous")
     B, K = valid.shape
     if K > MAX_K:
-        raise ValueError(f"nms_suppress: K={K} candidates; the kernel holds "
-                         f"one per thread of one block, at most {MAX_K}")
+        raise ValueError(f"nms_suppress: K={K} candidates; the kernel's "
+                         f"bitmask holds at most {MAX_K}")
     valid = valid.to(torch.float32).contiguous()
     keep = torch.empty((B, K), dtype=torch.float32, device=iou.device)
     if keep.numel() == 0:
         return keep
+    # the suppression bitmask, 32 candidates a word: written by the first
+    # of the kernel's two launches, read by the second
+    mask = torch.empty((B, K, (K + 31) // 32), dtype=torch.int32,
+                       device=iou.device)
     fn = _build.function("nms_suppress", "pautdx_nms_suppress", _ARGTYPES)
     with torch.cuda.device(iou.device):
         stream = torch.cuda.current_stream(iou.device).cuda_stream
-        rc = fn(iou.data_ptr(), valid.data_ptr(), keep.data_ptr(), B, K,
-                iou_threshold, stream)
+        rc = fn(iou.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                mask.data_ptr(), B, K, iou_threshold, stream)
         LAUNCHES += 1
     _build.check(rc, "nms_suppress")
     return keep

@@ -77,15 +77,20 @@ def _randn(shape, seed, device, dtype):
     return torch.from_numpy(x).to(device, dtype)
 
 
-@pytest.mark.parametrize("dtype,N", [("float32", 400), ("bfloat16", 400),
-                                     ("float32", 37), ("bfloat16", 37)])
-def test_attention_kernel_matches_plain(cuda, dtype, N):
-    """f32 with TF32 off: 1e-5. bf16: 2e-2, since the plain version rounds
-    the probabilities to bf16 before P.V and the kernel keeps them f32.
-    N=37 leaves a ragged query tile."""
+@pytest.mark.parametrize("dtype,N,scale", [
+    ("float32", 400, 1.0), ("float32", 37, 1.0),
+    *(("bfloat16", n, 1.0) for n in (1, 15, 16, 17, 37, 64, 65, 400, 600)),
+    ("bfloat16", 400, 8.0)])
+def test_attention_kernel_matches_plain(cuda, dtype, N, scale):
+    """f32 (CUDA cores) with TF32 off: 1e-5. bf16 (tensor cores): 2e-2,
+    since the plain version rounds the normalized probabilities to bf16
+    before P.V and the kernel the unnormalized ones. N off a multiple of 16
+    leaves a ragged query tile, off 64 a ragged key step; 600 keys take two
+    shared-memory chunks. q scaled 8x makes the running max move many
+    times within a row."""
     dt = getattr(torch, dtype)
     q, k, v = (_randn((3, 8, N, 16), s, cuda, dt) for s in range(3))
-    q = q * 0.25
+    q = q * (0.25 * scale)
     before = attention.LAUNCHES
     got = attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
@@ -97,6 +102,8 @@ def test_attention_kernel_matches_plain(cuda, dtype, N):
     # the (B, N, D) form reads the heads through strides
     x = [t.transpose(1, 2).reshape(3, N, 128).contiguous() for t in (q, k, v)]
     got = attention.aifi_attention(*x, 8)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 2
     want = attention.aifi_attention_reference(*x, 8)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -108,6 +115,11 @@ def test_attention_kernel_refuses_what_it_cannot_take(cuda):
     q = _randn((2, 8, 4, 16), 0, cuda, torch.float32).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         attention.fused_attention(q, q, q)
+    before = attention.LAUNCHES
+    q = _randn((2 * 4 * 8 * 16 + 1,), 0, cuda, torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.fused_attention(*(q.view(2, 4, 8, 16),) * 3)
+    assert attention.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
@@ -153,23 +165,57 @@ def _nms_inputs(B, K, seed, device):
     iou = box_iou_matrix(boxes)
     hits = torch.from_numpy(rng.integers(0, K, (2 * K, 2)))
     iou[0, hits[:, 0], hits[:, 1]] = 0.45
-    iou[-1, 3] = iou[-1, 2]
+    if K > 3:
+        iou[-1, 3] = iou[-1, 2]
     valid = torch.from_numpy(rng.uniform(size=(B, K)) > 0.2)
     return iou.to(device), valid.to(device)
 
 
-@pytest.mark.parametrize("B,K", [(32, 300), (3, 77), (2, 1024)])
-def test_nms_kernel_matches_plain(cuda, B, K):
-    """Bit for bit: the sweep only compares IoU values. K=77 leaves a
-    ragged warp; 1024 is the largest block."""
-    iou, valid = _nms_inputs(B, K, K, cuda)
+def _nms_equal(iou, valid, thr=0.45):
+    """The kernel's keep against the plain sweep's, bit for bit, after
+    exactly one launch."""
     before = suppress.LAUNCHES
-    got = suppress.nms_suppress(iou, valid, 0.45)
+    got = suppress.nms_suppress(iou, valid, thr)
     torch.cuda.synchronize()
     assert suppress.LAUNCHES == before + 1
-    want = suppress.nms_suppress_reference(iou, valid, 0.45)
+    want = suppress.nms_suppress_reference(iou, valid, thr)
     assert got.dtype == torch.float32 and torch.equal(got, want)
-    assert 0 < want.sum() < valid.sum()
+    return want
+
+
+@pytest.mark.parametrize("B,K", [(32, 300), (3, 77), (2, 1024), (2, 1),
+                                 (2, 63), (2, 64), (2, 65)])
+def test_nms_kernel_matches_plain(cuda, B, K):
+    """Bit for bit: the sweep only compares IoU values. K off a multiple
+    of 32 or 64 leaves a ragged last word of the bitmask; 1024 is the
+    largest K."""
+    iou, valid = _nms_inputs(B, K, K, cuda)
+    want = _nms_equal(iou, valid)
+    if K > 1:
+        assert 0 < want.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "identical", "at_threshold"])
+def test_nms_kernel_edge_cases(cuda, case):
+    """No valid slot keeps nothing; identical boxes, all valid, keep only
+    slot 0; an IoU exactly at the threshold suppresses nothing (the test
+    is iou > thr in f32)."""
+    B, K = 3, 300
+    iou, valid = _nms_inputs(B, K, 11, cuda)
+    if case == "all_invalid":
+        valid = torch.zeros_like(valid)
+    elif case == "identical":
+        iou = torch.ones_like(iou)
+        valid = torch.ones_like(valid)
+    else:
+        iou = torch.full_like(iou, 0.45)
+    want = _nms_equal(iou, valid)
+    if case == "all_invalid":
+        assert want.sum() == 0
+    elif case == "identical":
+        assert want[:, 0].eq(1).all() and want[:, 1:].eq(0).all()
+    else:
+        assert torch.equal(want, valid.float())
 
 
 def test_nms_kernel_refuses_what_it_cannot_take(cuda):
