@@ -50,24 +50,37 @@ Phases, one line each, in order; any failure exits non-zero:
     taps, corners of weight 0 and rows past either end of the table
     included: forward within 1e-5 of the output's largest magnitude, the
     backward's d_flat and d_w within 1e-5 of theirs against autograd of the
-    plain version (the backward sums in atomics), and at a ragged T=37;
+    plain version (a row of d_flat sums its taps in an order that varies
+    from run to run), also at a ragged T=37, at L=20000 (the backward's
+    rows split into ranges) and with every corner of a frame piled on one
+    row; the one-hot gather's backward
+    kernel against the plain clipped scatter-add, through autograd and
+    alone, at (16, 2000, 128) x 1200, a ragged (3, 50, 128) x 37 with
+    indices past both ends, and a pile-up, within 1e-5;
 12. the training config ``dfine_nano(num_labels=2)`` at 640px, batch 4,
-    f32: one forward, loss and backward through the kernels and one
-    through the plain versions from the same weights and batch: losses
-    within 1e-4, every gradient within 1e-3 in norm, BN running statistics
-    within 1e-5; the step launches the weighted gather 3 times forward and
-    3 times backward; a checkpoint save and restore gives identical
-    tensors;
+    f32, and the same with ``decoder_method="discrete"``: for each, one
+    forward, loss and backward through the kernels and one through the
+    plain versions from the same weights and batch: losses within 1e-4,
+    every gradient within 1e-3 in norm (the discrete step: the gradient
+    as a whole, and each leaf within the larger of 1e-3 and twice what it
+    moves in a plain step whose one-hot sums run in another order), BN
+    running statistics within 1e-5; the bilinear step launches the
+    weighted gather 3 times forward and 3 times backward, the discrete one
+    the one-hot gather 3 and 3 times; a checkpoint save and restore gives
+    identical tensors;
 13. the training run: ``train.detector.build_dfine_trainer`` at 640px,
     batch 16, f32, lr 1e-3, on seeded numpy batches; counts every kernel's
     launches over one step, times steps through the kernels and, in turns
     with them, through the plain versions (six 5-step turns per arm, the
     median turn reported beside all of them), reads the peak device memory,
     checks the loss is finite at every step and falls over 20 steps on one
-    batch, and times both weighted gather kernels at the inputs the step
-    gave them, beside their plain versions and ``embedding_bag``: device
-    time per call from ``torch.profiler`` (the wrappers' host time exceeds
-    these kernels' device time, so CUDA events around one call measure the
+    batch; one step of the discrete config on the same batches, its
+    launches counted; and times both weighted gather kernels and the
+    one-hot backward at the inputs the steps gave them, beside their plain
+    versions and ``embedding_bag`` (``F.embedding``'s backward for the
+    one-hot): device time per call from ``torch.profiler``, every kernel
+    and memset of the call summed (the wrappers' host time exceeds these
+    kernels' device time, so CUDA events around one call measure the
     host), and the event-timed call beside it.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
@@ -79,6 +92,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -113,7 +127,7 @@ DETECTION_KEYS = ("boxes", "scores", "classes", "valid", "indices")
 TRAIN_BATCH = 16
 TRAIN_WARMUP = 6          # the first steps pin and cache host buffers
 TRAIN_TURN = 5            # timed steps per turn; six turns per arm
-GATHER_TOL = 1e-5         # of the largest magnitude; atomics reorder sums
+GATHER_TOL = 1e-5         # of the largest magnitude; sums reordered
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 
@@ -373,23 +387,39 @@ def launch_counts(counters: dict) -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
 
+def grad_floor(want: dict) -> float:
+    """1e-6 of the gradient's global norm: leaves below it are zero up to
+    float noise (a bias in front of a train-mode BatchNorm, a key bias
+    under the softmax)."""
+    return 1e-6 * sum(float(w.double().pow(2).sum())
+                      for w in want.values()) ** 0.5
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Per leaf ||got - want|| / ||want|| over the leaves above the floor."""
+    floor = grad_floor(want)
+    return {name: (got[name] - w).norm().item() / w.norm().item()
+            for name, w in want.items() if w.norm().item() >= floor}
+
+
 def relative_grad_errors(got: dict, want: dict) -> tuple:
-    """Per leaf ||got - want|| / ||want||: the worst over the leaves whose
-    gradient is above 1e-6 of the global norm, and the worst absolute error
-    of the others, whose gradient is zero up to float noise (a bias in
-    front of a train-mode BatchNorm, a key bias under the softmax) and is
-    held to that floor. Returns (worst relative, its leaf, worst noise
-    error, the floor)."""
-    floor = 1e-6 * sum(float(w.double().pow(2).sum())
-                       for w in want.values()) ** 0.5
-    worst, leaf, noise = 0.0, "", 0.0
-    for name, w in want.items():
-        err = (got[name] - w).norm().item()
-        if w.norm().item() < floor:
-            noise = max(noise, err)
-        elif err / w.norm().item() > worst:
-            worst, leaf = err / w.norm().item(), name
-    return worst, leaf, noise, floor
+    """The worst of :func:`leaf_errors` and its leaf, and the worst
+    absolute error of the leaves below the floor, which are held to it.
+    Returns (worst relative, its leaf, worst noise error, the floor)."""
+    floor = grad_floor(want)
+    errs = leaf_errors(got, want)
+    leaf = max(errs, key=errs.get, default="")
+    noise = max(((got[n] - w).norm().item() for n, w in want.items()
+                 if n not in errs), default=0.0)
+    return errs.get(leaf, 0.0), leaf, noise, floor
+
+
+def global_grad_error(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over all leaves together."""
+    num = sum(float((got[n] - w).double().pow(2).sum())
+              for n, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return (num / den) ** 0.5
 
 
 def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
@@ -425,8 +455,13 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
         return max_abs_err(got, want) / want.abs().max().item()
 
     worst = {}
-    for B, L, C, T in ((16, 2000, 128, 1200), (3, 50, 128, 37)):
+    for B, L, C, T, pile_up in ((16, 2000, 128, 1200, False),
+                                (3, 50, 128, 37, False),
+                                (2, 20000, 128, 500, False),
+                                (4, 2000, 128, 1200, True)):
         flat, idx, w, g = weighted_inputs(B, L, C, T)
+        if pile_up:
+            idx.fill_(L // 2)
         fk, wk = flat.clone().requires_grad_(), w.clone().requires_grad_()
         got = gather.weighted_gather(fk, idx, wk)
         got.backward(g)
@@ -436,59 +471,150 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
         want.backward(g)
         errs = (within(got, want), within(fk.grad, fp.grad),
                 within(wk.grad, wp.grad))
-        check(max(errs) <= GATHER_TOL, f"weighted gather T={T}: relative "
+        case = f"({B}, {L}, {C}) x ({T}, 4)" + (" pile-up" if pile_up else "")
+        check(max(errs) <= GATHER_TOL, f"weighted gather {case}: relative "
               f"max |err| (out, d_flat, d_w) {errs} beyond {GATHER_TOL}")
-        worst[f"T={T}"] = errs
-    print(f"[11 weighted gather] kernel vs plain, f32, (16, 2000, 128) x "
-          f"(1200, 4) taps and (3, 50, 128) x (37, 4), rows -3..L+2 "
-          f"clamped, corners of weight 0: max |err| / max |value| of (out, "
-          f"d_flat, d_w) " + ", ".join(
+        worst[case] = errs
+    print(f"[11 weighted gather] kernel vs plain, f32, rows -3..L+2 "
+          f"clamped, corners of weight 0, L=20000 in row ranges, a pile-up "
+          f"of every corner of a frame on one row: max |err| / max |value| "
+          f"of (out, d_flat, d_w) " + "; ".join(
               f"{k}: " + ", ".join(f"{e:.3g}" for e in v)
               for k, v in worst.items())
-          + f" <= {GATHER_TOL} (d_flat sums in atomics)", flush=True)
+          + f" <= {GATHER_TOL} (a row of d_flat sums its taps in an order "
+          f"that varies from run to run)", flush=True)
+    worst = {}
+    for B, L, C, T, pile_up in ((16, 2000, 128, 1200, False),
+                                (3, 50, 128, 37, False),
+                                (4, 2000, 128, 1200, True)):
+        flat = torch.randn((B, L, C), generator=gen, device=dev)
+        idx = torch.randint(-3, L + 3, (B, T), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[:, :2] = torch.tensor([-3, L + 2], dtype=torch.int32, device=dev)
+        if pile_up:
+            idx.fill_(L // 2)
+        g = torch.randn((B, T, C), generator=gen, device=dev)
+        fk = flat.clone().requires_grad_()
+        gather.onehot_gather(fk, idx).backward(g)
+        alone = gather.onehot_gather_backward(g, idx, L)
+        torch.cuda.synchronize()
+        want = gather.onehot_gather_backward_reference(g, idx, L)
+        errs = (within(fk.grad, want), within(alone, want))
+        case = f"({B}, {L}, {C}) x {T}" + (" pile-up" if pile_up else "")
+        check(max(errs) <= GATHER_TOL, f"one-hot backward {case}: relative "
+              f"max |err| (autograd, kernel alone) {errs} beyond "
+              f"{GATHER_TOL}")
+        worst[case] = errs
+    print(f"[11 one-hot backward] kernel vs plain clipped scatter-add, f32, "
+          f"indices -3 and L+2 clamped, a pile-up of every tap of a frame on "
+          f"one row: max |err| / max |value| of (through autograd, the "
+          f"kernel alone) " + "; ".join(
+              f"{k}: " + ", ".join(f"{e:.3g}" for e in v)
+              for k, v in worst.items())
+          + f" <= {GATHER_TOL} (sums in an order that varies)", flush=True)
 
     # 12. the training model: one step through the kernels vs the plain
-    # versions, from the same weights and batch
+    # versions, from the same weights and batch, for the bilinear decoder
+    # (the training config) and the discrete one
     size = 640
-    cfg = dfine_nano(num_labels=2)
-    model = DFine(cfg, device=dev, seed=0)
-    objective = dfine_objective(size, cfg)
     batch = {k: torch.as_tensor(v).to(dev)
              for k, v in make_train_batches(1, 4, size, seed=5)[0].items()}
-    start = {k: v.clone() for k, v in model.state_dict().items()}
 
-    def one_step(plain: bool):
+    def model_step(model, objective, start) -> tuple:
+        """The loss and the gradients of one step from ``start``, through
+        whatever the wrappers are now."""
         model.load_state_dict(start)
         model.zero_grad(set_to_none=True)
+        out = model(batch["images"], train=True)
+        loss, _ = objective(out, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {
+            n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for n, p in model.named_parameters()}
+
+    def one_step(model, objective, start, plain: bool):
         reset_counts(counters)
         with plain_kernels(wrappers) if plain else nullcontext():
-            out = model(batch["images"], train=True)
-            loss, _ = objective(out, batch)
-            loss.backward()
-        torch.cuda.synchronize()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in model.named_parameters()}
-        return (loss.item(), grads, dict(model.named_buffers()),
+            loss, grads = model_step(model, objective, start)
+        return (loss, grads,
+                {k: v.clone() for k, v in model.named_buffers()},
                 launch_counts(counters))
 
-    loss_k, grads_k, bufs_k, step_counts = one_step(False)
-    bufs_k = {k: v.clone() for k, v in bufs_k.items()}
-    loss_p, grads_p, bufs_p, plain_counts = one_step(True)
-    check(step_counts == dict(none, weighted_gather=3,
-                              weighted_gather_backward=3),
-          f"one training step launched {step_counts}, want the weighted "
-          f"gather 3 times forward and 3 times backward")
-    check(plain_counts == none, f"the plain step launched {plain_counts}")
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    check(loss_err <= TRAIN_LOSS_TOL, f"train loss kernels {loss_k} vs "
-          f"plain {loss_p}")
-    grad_err, grad_leaf, noise, floor = relative_grad_errors(grads_k,
-                                                             grads_p)
-    check(grad_err <= TRAIN_GRAD_TOL and noise <= floor,
-          f"gradients: worst relative {grad_err:.3g} at {grad_leaf}, "
-          f"noise leaves {noise:.3g} (floor {floor:.3g})")
-    bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
-    check(bn_err <= 1e-5, f"BN running statistics differ by {bn_err:.3g}")
+    def kernels_vs_plain(cfg, want_counts: dict, reordered=None):
+        """One step of ``cfg`` through the kernels and one through the
+        plain versions: the checks of phase 12 and what they read. With
+        ``reordered`` (wrappers to the plain versions summing in another
+        order), a third step measures how far the plain step's own
+        gradients move when only the order of a sum changes, leaf by
+        leaf; a leaf may then differ by twice that, the 1e-3 holding for
+        the gradient as a whole and as the floor of every leaf."""
+        model = DFine(cfg, device=dev, seed=0)
+        objective = dfine_objective(size, cfg)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        loss_k, grads_k, bufs_k, counts_k = one_step(model, objective, start,
+                                                     False)
+        loss_p, grads_p, bufs_p, counts_p = one_step(model, objective, start,
+                                                     True)
+        what = f"decoder_method={cfg.decoder_method!r}"
+        check(counts_k == dict(none, **want_counts),
+              f"{what}: one training step launched {counts_k}, want "
+              f"{want_counts}")
+        check(counts_p == none, f"{what}: the plain step launched {counts_p}")
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        check(loss_err <= TRAIN_LOSS_TOL, f"{what}: train loss kernels "
+              f"{loss_k} vs plain {loss_p}")
+        grad_err, grad_leaf, noise, floor = relative_grad_errors(grads_k,
+                                                                 grads_p)
+        check(noise <= floor, f"{what}: noise leaves {noise:.3g} (floor "
+              f"{floor:.3g})")
+        if reordered is None:
+            check(grad_err <= TRAIN_GRAD_TOL, f"{what}: gradients: worst "
+                  f"relative {grad_err:.3g} at {grad_leaf}")
+            grads_note = (f"worst gradient relative error {grad_err:.3g} "
+                          f"({grad_leaf}) <= {TRAIN_GRAD_TOL}")
+        else:
+            with plain_kernels(wrappers), swapped(
+                    dict.fromkeys(reordered, gather),
+                    lambda name, mod, fn: reordered[name]):
+                spread = leaf_errors(model_step(model, objective, start)[1],
+                                     grads_p)
+            errs = leaf_errors(grads_k, grads_p)
+            limit = {n: max(TRAIN_GRAD_TOL, 2 * spread[n]) for n in errs}
+            over = {n: (e, limit[n]) for n, e in errs.items()
+                    if e > limit[n]}
+            whole = global_grad_error(grads_k, grads_p)
+            check(not over and whole <= TRAIN_GRAD_TOL,
+                  f"{what}: gradients beyond their limits {over}, as a "
+                  f"whole {whole:.3g}")
+            top = max(spread, key=spread.get)
+            grads_note = (f"gradient relative error as a whole "
+                          f"{whole:.3g} <= {TRAIN_GRAD_TOL}; worst leaf "
+                          f"{grad_err:.3g} ({grad_leaf}), the plain step "
+                          f"itself moving up to {spread[top]:.3g} ({top}) "
+                          f"when its one-hot sums run in reverse tap "
+                          f"order; every leaf within max({TRAIN_GRAD_TOL}, "
+                          f"2x that)")
+        bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
+        check(bn_err <= 1e-5, f"{what}: BN running statistics differ by "
+              f"{bn_err:.3g}")
+        print(f"[12 train model] {what}, 640px f32 batch 4, TF32 off: loss "
+              f"through the kernels {loss_k:.6f}, plain {loss_p:.6f} "
+              f"(relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
+              f"{grads_note}; noise-level leaves within {noise:.3g} "
+              f"(floor {floor:.3g}); BN statistics max |err| {bn_err:.3g}; "
+              f"launches per step {counts_k}", flush=True)
+        return model
+
+    cfg = dfine_nano(num_labels=2)
+    model = kernels_vs_plain(cfg, dict(weighted_gather=3,
+                                       weighted_gather_backward=3))
+    kernels_vs_plain(dataclasses.replace(cfg, decoder_method="discrete"),
+                     dict(onehot_gather=3, onehot_gather_backward=3),
+                     reordered={"onehot_gather": lambda flat, idx: gather.
+                                onehot_gather_reference(
+                                    flat, idx.flip(1)).flip(1)})
+    objective = dfine_objective(size, cfg)
     # checkpoint round trip through the trainer's state
     ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -521,15 +647,10 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
     check(same and meta["dfine_config"]["decoder_method"] == "default",
           "checkpoint round trip changed a tensor")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    print(f"[12 train model] dfine_nano(num_labels=2) 640px f32 batch 4, "
-          f"TF32 off: loss through the kernels {loss_k:.6f}, plain "
-          f"{loss_p:.6f} (relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
-          f"worst gradient relative error {grad_err:.3g} ({grad_leaf}) "
-          f"<= {TRAIN_GRAD_TOL}, noise-level leaves within {noise:.3g} "
-          f"(floor {floor:.3g}); BN statistics max |err| {bn_err:.3g}; "
-          f"launches per step {step_counts}; checkpoint round trip of "
-          f"{len(pairs)} tensors identical", flush=True)
-    del model, trainer, state, restored, saved, loaded, grads_k, grads_p
+    print(f"[12 checkpoint] dfine_nano(num_labels=2): round trip of "
+          f"{len(pairs)} tensors through the trainer's state identical",
+          flush=True)
+    del model, trainer, state, restored, saved, loaded
 
     # 13. the training run
     trainer = build_dfine_trainer(size=size, device=dev, seed=0)
@@ -593,20 +714,49 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
           f"(min {min(fixed):.4f})", flush=True)
     del fresh, fstate
 
-    # both kernels at the inputs the training step gave them
+    # the discrete decoder's step on the same batches: the inputs and
+    # launches of the one-hot gather's kernels
+    dcfg = dataclasses.replace(dfine_nano(num_labels=2),
+                               decoder_method="discrete")
+    dtrainer = Trainer(DFine(dcfg, device=dev, seed=0),
+                       dfine_objective(size, dcfg), make_optimizer(1e-3),
+                       input_key="images")
+    dstate = dtrainer.init(batches[0])
+    dtrainer.train_epoch(dstate, batches[:1])
+    dcaptured = {}
+    with first_inputs(wrappers, dcaptured):
+        reset_counts(counters)
+        _, m = dtrainer.train_epoch(dstate, batches[1:2])
+        torch.cuda.synchronize()
+        dcounts = launch_counts(counters)
+    check(dcounts == dict(none, onehot_gather=3, onehot_gather_backward=3),
+          f"one discrete training step launched {dcounts}")
+    check(m["loss_was_finite"] * m["update_was_finite"] == 1.0,
+          "the discrete training step is not finite")
+    print(f"[13 discrete step] dfine_nano(num_labels=2, "
+          f"decoder_method='discrete') 640px f32 batch {TRAIN_BATCH}: loss "
+          f"{float(m['total']):.4f}, finite; launches per step {dcounts}",
+          flush=True)
+    del dtrainer, dstate
+
+    # the gather kernels at the inputs the training steps gave them
     flat, idx, w = (t.detach() for t in captured["weighted_gather"])
     _, _, _, g = (t.detach() for t in captured["weighted_gather_backward"])
     B, L, C = flat.shape
     T, K = idx.shape[1:]
+    og, oidx, oL = dcaptured["onehot_gather_backward"]
+    og, oidx = og.detach(), oidx.detach()
     with torch.no_grad():
         got = gather.weighted_gather(flat, idx, w)
         want = gather.weighted_gather_reference(flat, idx, w)
         d_got = gather.weighted_gather_backward(flat, idx, w, g)
         d_want = gather.weighted_gather_backward_reference(flat, idx, w, g)
+        o_got = gather.onehot_gather_backward(og, oidx, oL)
+        o_want = gather.onehot_gather_backward_reference(og, oidx, oL)
     rel = (within(got, want), within(d_got[0], d_want[0]),
-           within(d_got[1], d_want[1]))
+           within(d_got[1], d_want[1]), within(o_got, o_want))
     check(max(rel) <= GATHER_TOL, f"training-step gather relative errors "
-          f"(out, d_flat, d_w) {rel}")
+          f"(out, d_flat, d_w, one-hot d_flat) {rel}")
     fwd_err = max_abs_err(got, want)
     bwd_err = max(max_abs_err(d_got[0], d_want[0]),
                   max_abs_err(d_got[1], d_want[1]))
@@ -629,13 +779,23 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
     w_r = bag_w.clone().requires_grad_()
     bag_out = bag(tab_r, w_r)
     bag_g = g.reshape(B * T, C)
+    # F.embedding over the clipped rows of all frames: its backward is the
+    # one-hot gather's
+    Bo, To, Co = og.shape
+    o_rows = (oidx.long().clamp(0, oL - 1)
+              + oL * torch.arange(Bo, device=dev)[:, None])
+    emb_table = torch.zeros((Bo * oL, Co), device=dev, requires_grad=True)
+    emb_out = F.embedding(o_rows, emb_table)
     records = []
-    for name, line, err, nbytes, flops, fn, plain, library in (
+    for name, line, err, nbytes, flops, fn, plain, library, shape in (
             ("weighted_gather", 134, fwd_err,
              table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
              lambda: gather.weighted_gather(flat, idx, w),
              lambda: gather.weighted_gather_reference(flat, idx, w),
-             lambda: bag(table, bag_w)),
+             lambda: bag(table, bag_w),
+             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+             f"{rows.numel()} distinct rows of {B * L}; library: "
+             f"embedding_bag over bags of {K}"),
             ("weighted_gather_backward", 196, bwd_err,
              out_bytes + table_bytes + tap_bytes + B * L * C * 4
              + idx.numel() * 4, 4 * K * C * B * T,
@@ -643,10 +803,25 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
              lambda: gather.weighted_gather_backward_reference(
                  flat, idx, w, g),
              lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
-                                         retain_graph=True))):
+                                         retain_graph=True),
+             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+             f"{rows.numel()} distinct rows of {B * L}; library: "
+             f"embedding_bag's backward to both inputs"),
+            ("onehot_gather_backward", 107,
+             max_abs_err(o_got, o_want),
+             og.numel() * 4 + Bo * oL * Co * 4 + oidx.numel() * 4,
+             Bo * To * Co,
+             lambda: gather.onehot_gather_backward(og, oidx, oL),
+             lambda: gather.onehot_gather_backward_reference(og, oidx, oL),
+             lambda: torch.autograd.grad(emb_out, emb_table, og,
+                                         retain_graph=True),
+             f"g {tuple(og.shape)} f32, idx {tuple(oidx.shape)}, L {oL}, "
+             f"{torch.unique(o_rows).numel()} distinct rows of {Bo * oL}; "
+             f"library: F.embedding's backward")):
+        parts = {}
         with torch.no_grad() if name == "weighted_gather" else nullcontext():
-            t_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(
-                library)
+            t_ms = device_ms(fn, parts=parts)
+            p_ms, l_ms = device_ms(plain), device_ms(library)
             call_ms = time_ms(fn)
         t_bytes = nbytes / PEAK_BYTES_PER_S
         t_ops = flops / PEAK_F32_FLOP_PER_S
@@ -654,24 +829,15 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
             name=name, route="cuda",
             source="pautdx_torch/csrc/weighted_gather.cu",
             replaces=f"pautdx/ops/pallas_gather.py:{line}",
-            launches=run_counts[name], max_abs_err=err, ms=t_ms,
-            plain_ms=p_ms, call_ms=call_ms,
-            bound_ms=1e3 * max(t_bytes, t_ops),
+            launches=(dcounts if name.startswith("onehot")
+                      else run_counts)[name],
+            max_abs_err=err, ms=t_ms, parts=parts, plain_ms=p_ms,
+            call_ms=call_ms, bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=l_ms,
-            shape=f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-                  f"{rows.numel()} distinct rows of {B * L}, {nbytes} bytes, "
-                  f"{flops} FLOP; library: embedding_bag over bags of {K}"
-                  + (", its backward to both inputs"
-                     if name != "weighted_gather" else "")))
+            shape=f"{shape}; {nbytes} bytes, {flops} FLOP"))
     for r in records:
-        print(f"[13 {r['name']}] {r['shape']}: device time per call "
-              f"(profiler) kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); one call "
-              f"through the wrapper, CUDA events, {r['call_ms']:.4f} ms; "
-              f"{r['launches']} launches per step, max |err| "
-              f"{r['max_abs_err']:.3g}", flush=True)
+        print_record("13", r, "per step")
     return records
 
 
@@ -710,7 +876,9 @@ def main() -> None:
                 "assemble_masks": (masks, "LAUNCHES"),
                 "weighted_gather": (gather, "WEIGHTED_LAUNCHES"),
                 "weighted_gather_backward": (gather,
-                                             "WEIGHTED_BACKWARD_LAUNCHES")}
+                                             "WEIGHTED_BACKWARD_LAUNCHES"),
+                "onehot_gather_backward": (gather,
+                                           "ONEHOT_BACKWARD_LAUNCHES")}
     wrappers = {name: mod for name, (mod, _) in counters.items()}
     none = dict.fromkeys(counters, 0)
 

@@ -15,12 +15,12 @@ promoted dtype of input and weight, as the reference's do, so a float32
 input to bf16 weights (the query position head) computes in float32.
 
 Ported: head-shared sampling points with the bilinear
-``decoder_method="default"`` (the ``weighted_gather`` kernel, forward and
-backward) and the discrete one (the ``onehot_gather`` kernel, inference
-only), the fused AIFI attention kernel (inference only), and the training
-mode of ``forward(images, train=True)``: BatchNorm on batch statistics,
-dropout, and every ``stop_gradient`` of the reference as a ``.detach()`` at
-the same place. Per-head sampling points and the denoising queries raise
+``decoder_method="default"`` (the ``weighted_gather`` kernel) and the
+discrete one (the ``onehot_gather`` kernel), both forward and backward, so
+either decoder trains; the fused AIFI attention kernel (inference only);
+and the training mode of ``forward(images, train=True)``: BatchNorm on
+batch statistics, dropout, and every ``stop_gradient`` of the reference as
+a ``.detach()`` at the same place. Per-head sampling points and the denoising queries raise
 ``NotImplementedError``.
 """
 

@@ -7,7 +7,9 @@ H x W row-major, into one (sum H*W, C) table per frame.
 - ``method="discrete"`` (nearest): the HF discrete index
   ``trunc(loc * size + 0.5)`` is clamped into its level and offset by the
   level's base row; the rows come from the ``ops.gather.onehot_gather``
-  kernel (inference only).
+  kernel, which has a backward: the value levels and the attention weights
+  get gradients, the locations none (the nearest index is a step), as in
+  the reference.
 - ``method="default"`` (bilinear, ``grid_sample`` with
   ``align_corners=False`` and zeros padding): each point's four corner rows,
   clamped into the level, and their weights, computed in f32 and zero for

@@ -2,10 +2,11 @@
 ``csrc/onehot_gather.cu`` and ``csrc/weighted_gather.cu``, their plain
 PyTorch versions and their launch counters.
 
-- :func:`onehot_gather` is the counterpart of the forward of
-  ``pautdx/ops/pallas_gather.py::pallas_onehot_gather`` (discrete decoder).
-  Its backward (a scatter-add) is not ported yet, so the wrapper refuses
-  inputs that need a gradient while grad mode is on, whatever the device.
+- :func:`onehot_gather` is the counterpart of
+  ``pautdx/ops/pallas_gather.py::pallas_onehot_gather`` (discrete decoder)
+  with its VJP. It is a ``torch.autograd.Function``: the forward launches
+  ``csrc/onehot_gather.cu``, the backward (a scatter-add of g into the
+  clipped rows) ``csrc/weighted_gather.cu``'s shared-memory scatter.
 - :func:`weighted_gather` is the counterpart of
   ``pallas_gather.py::pallas_weighted_gather`` with its VJP (bilinear
   decoder). It is a ``torch.autograd.Function`` whose forward and backward
@@ -13,8 +14,9 @@ PyTorch versions and their launch counters.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. ``LAUNCHES`` (the one-hot gather),
-``WEIGHTED_LAUNCHES`` and ``WEIGHTED_BACKWARD_LAUNCHES`` count kernel
-launches and nothing else.
+``ONEHOT_BACKWARD_LAUNCHES``, ``WEIGHTED_LAUNCHES`` and
+``WEIGHTED_BACKWARD_LAUNCHES`` count calls that launch a kernel and nothing
+else.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ import torch
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
+ONEHOT_BACKWARD_LAUNCHES = 0
 WEIGHTED_LAUNCHES = 0
 WEIGHTED_BACKWARD_LAUNCHES = 0
+
+# the shared memory one block may opt into on sm_90 (227 KB), and the
+# widest channel slice of a backward tile
+SMEM_BYTES = 232448
+MAX_SLICE = 16
 
 # flat, idx, out, B, L, T, row bytes, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -36,9 +44,23 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 # flat, idx, w, out, B, L, T, K, C, stream
 _WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
-# flat, idx, w, g, d_flat, d_w, B, L, T, K, C, stream
-_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+# flat, idx, w, g, d_flat, d_w, B, L, T, K, C, cs, rows, stream
+_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# g, idx, d_flat, B, L, T, C, cs, rows, stream
+_ONEHOT_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
+
+
+def scatter_tiles(L: int, C: int) -> Tuple[int, int]:
+    """(cs, rows) of the backward kernels' d_flat tiles: one block owns
+    ``rows`` rows by ``cs`` channels of a frame's (L, C) table in shared
+    memory. cs is the widest multiple of 4 up to ``MAX_SLICE`` that divides
+    C (a multiple of 4); the L rows split into as few equal ranges as fit
+    ``SMEM_BYTES``, since a block walks all its frame's taps."""
+    cs = max(c for c in range(4, min(C, MAX_SLICE) + 1, 4) if C % c == 0)
+    ranges = -(-L // (SMEM_BYTES // (4 * cs)))
+    return cs, -(-L // ranges)
 
 
 def onehot_gather_reference(flat: torch.Tensor,
@@ -49,23 +71,58 @@ def onehot_gather_reference(flat: torch.Tensor,
     return torch.take_along_dim(flat, i[..., None], dim=1)
 
 
-def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """flat (B, L, C) of any 2- or 4-byte dtype; idx (B, T) int32 ->
-    (B, T, C) rows, copied bit for bit. Indices are clipped to [0, L-1] as
-    the TPU kernel clips them. The kernel copies 16-byte pieces, so on the
-    card a row must be a multiple of 16 bytes and ``flat`` 16-byte aligned
-    (C=128 on the serving path: 256-byte rows)."""
+def onehot_gather_backward_reference(g: torch.Tensor, idx: torch.Tensor,
+                                     L: int) -> torch.Tensor:
+    """g (B, T, C); idx (B, T) -> d_flat (B, L, C): row j of frame b is the
+    sum of g[b, t] over the taps t with clip(idx[b, t], 0, L-1) = j, the
+    VJP of :func:`onehot_gather_reference`."""
+    B, T, C = g.shape
+    rows = (idx.clamp(0, L - 1).long()
+            + L * torch.arange(B, device=idx.device)[:, None])
+    d_flat = torch.zeros((B * L, C), dtype=g.dtype, device=g.device)
+    d_flat.index_add_(0, rows.reshape(-1), g.reshape(-1, C))
+    return d_flat.reshape(B, L, C)
+
+
+def onehot_gather_backward(g: torch.Tensor, idx: torch.Tensor,
+                           L: int) -> torch.Tensor:
+    """The backward kernel of :func:`onehot_gather`: d_flat (B, L, C) f32
+    for the output gradient g (B, T, C) f32, every element written by the
+    kernel. Its sums run in shared-memory atomics, in an order that changes
+    from run to run."""
+    global ONEHOT_BACKWARD_LAUNCHES
+    if g.device.type != "cuda" or idx.device != g.device:
+        raise RuntimeError(f"onehot_gather_backward: no kernel for "
+                           f"{g.device} and {idx.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"onehot_gather_backward: the kernel takes a float32 "
+                        f"gradient, got {g.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"onehot_gather_backward: idx must be int32, got "
+                        f"{idx.dtype}")
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("onehot_gather_backward: g and idx must be "
+                         "contiguous")
+    B, T, C = g.shape
+    if C % 4 or g.data_ptr() % 16:
+        raise ValueError(f"onehot_gather_backward: the kernel moves float4 "
+                         f"pieces; got C={C} or g off 16-byte alignment")
+    d_flat = torch.empty((B, L, C), dtype=g.dtype, device=g.device)
+    if d_flat.numel() == 0:
+        return d_flat
+    fn = _build.function("weighted_gather", "pautdx_onehot_gather_backward",
+                         _ONEHOT_BWD_ARGTYPES)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(g.data_ptr(), idx.data_ptr(), d_flat.data_ptr(), B, L, T, C,
+                *scatter_tiles(L, C), stream)
+        ONEHOT_BACKWARD_LAUNCHES += 1
+    _build.check(rc, "onehot_gather_backward")
+    return d_flat
+
+
+def _onehot_forward(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    if flat.dim() != 3 or idx.dim() != 2 or idx.shape[0] != flat.shape[0]:
-        raise ValueError(f"onehot_gather: want flat (B, L, C) and idx (B, T),"
-                         f" got {tuple(flat.shape)} and {tuple(idx.shape)}")
-    if idx.device != flat.device:
-        raise ValueError("onehot_gather: flat and idx on different devices")
-    _build.refuse_grad("onehot_gather", flat)
-    if flat.device.type == "cpu":
-        return onehot_gather_reference(flat, idx)
-    if flat.device.type != "cuda":
-        raise RuntimeError(f"onehot_gather: no kernel for {flat.device}")
     if idx.dtype != torch.int32:
         raise TypeError(f"onehot_gather: idx must be int32, got {idx.dtype}")
     if flat.element_size() not in (2, 4) or flat.is_complex():
@@ -74,8 +131,6 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("onehot_gather: flat and idx must be contiguous")
     B, L, C = flat.shape
     T = idx.shape[1]
-    if L == 0:
-        raise ValueError("onehot_gather: empty table")
     row_bytes = C * flat.element_size()
     if row_bytes % 16 or flat.data_ptr() % 16:
         raise ValueError(f"onehot_gather: the kernel copies 16-byte pieces; "
@@ -94,6 +149,44 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         LAUNCHES += 1
     _build.check(rc, "onehot_gather")
     return out
+
+
+class _OnehotGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[1]
+        return _onehot_forward(flat, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        # looked up in the module at every call, like the forward wrapper
+        return onehot_gather_backward(g.contiguous(), idx, ctx.rows), None
+
+
+def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat (B, L, C) of any 2- or 4-byte dtype; idx (B, T) int32 ->
+    (B, T, C) rows, copied bit for bit. Indices are clipped to [0, L-1] as
+    the TPU kernel clips them. The kernel copies 16-byte pieces, so on the
+    card a row must be a multiple of 16 bytes and ``flat`` 16-byte aligned
+    (C=128 on the serving path: 256-byte rows).
+
+    Differentiable in ``flat``: the gradient of a row is the sum of the
+    output gradients of the taps that read it, at the clipped index (on the
+    card a float32 gradient only)."""
+    if flat.dim() != 3 or idx.dim() != 2 or idx.shape[0] != flat.shape[0]:
+        raise ValueError(f"onehot_gather: want flat (B, L, C) and idx (B, T),"
+                         f" got {tuple(flat.shape)} and {tuple(idx.shape)}")
+    if idx.device != flat.device:
+        raise ValueError("onehot_gather: flat and idx on different devices")
+    if flat.shape[1] == 0:
+        raise ValueError("onehot_gather: empty table")
+    if flat.device.type == "cpu":
+        return onehot_gather_reference(flat, idx)
+    if flat.device.type != "cuda":
+        raise RuntimeError(f"onehot_gather: no kernel for {flat.device}")
+    return _OnehotGather.apply(flat, idx)
 
 
 # ------------------------------------------------------------------ weighted
@@ -163,23 +256,25 @@ def _check_kernel_inputs(*tensors) -> None:
 def weighted_gather_backward(flat: torch.Tensor, idx: torch.Tensor,
                              w: torch.Tensor, g: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernel: (d_flat, d_w) of :func:`weighted_gather` for
-    the output gradient g (B, T, C). d_flat's sum over taps runs in
-    atomics, in an order that changes from run to run."""
+    """The backward kernels: (d_flat, d_w) of :func:`weighted_gather` for
+    the output gradient g (B, T, C). Every element of both is written by the
+    kernels; d_flat's sums run in shared-memory atomics, in an order that
+    changes from run to run, d_w's in a fixed order."""
     global WEIGHTED_BACKWARD_LAUNCHES
     _check_kernel_inputs(flat, idx, w, g)
     B, L, C = flat.shape
     T, K = idx.shape[1:]
-    d_flat = torch.zeros_like(flat)
+    d_flat = torch.empty_like(flat)
     d_w = torch.empty_like(w)
-    if g.numel() == 0:
+    if flat.numel() == 0:
         return d_flat, d_w.zero_()
     fn = _build.function("weighted_gather", "pautdx_weighted_gather_backward",
                          _WEIGHTED_BWD_ARGTYPES)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(),
-                d_flat.data_ptr(), d_w.data_ptr(), B, L, T, K, C, stream)
+                d_flat.data_ptr(), d_w.data_ptr(), B, L, T, K, C,
+                *scatter_tiles(L, C), stream)
         WEIGHTED_BACKWARD_LAUNCHES += 1
     _build.check(rc, "weighted_gather_backward")
     return d_flat, d_w

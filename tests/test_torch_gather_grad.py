@@ -1,0 +1,131 @@
+"""The gradient of pautdx_torch's one-hot row gather, held to the JAX
+package on the CPU, and the tile plan of the gathers' backward kernels.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+Pallas kernel runs in interpret mode. The backward kernel itself is held to
+the plain version on the card by tests/test_torch_kernels.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pautdx.ops import deformable as jdeform
+from pautdx.ops.pallas_gather import pallas_onehot_gather
+from pautdx_torch.ops import deformable, gather
+
+
+def _onehot_inputs(seed, B=2, L=30, C=8, T=40, low=0, high=None):
+    rng = np.random.default_rng(seed)
+    flat = rng.normal(size=(B, L, C)).astype(np.float32)
+    idx = rng.integers(low, L if high is None else high, (B, T)).astype(
+        np.int32)
+    g = rng.normal(size=(B, T, C)).astype(np.float32)
+    return flat, idx, g
+
+
+def _torch_grad(flat, idx, g):
+    tf = torch.from_numpy(flat).requires_grad_()
+    before = gather.ONEHOT_BACKWARD_LAUNCHES
+    out = gather.onehot_gather(tf, torch.from_numpy(idx))
+    out.backward(torch.from_numpy(g))
+    assert gather.ONEHOT_BACKWARD_LAUNCHES == before  # the CPU path: none
+    return out.detach().numpy(), tf.grad.numpy()
+
+
+def test_onehot_gather_grad_matches_pallas():
+    """In-range indices, rows hit many times: the output and the VJP of the
+    Pallas kernel's custom_vjp (a scatter-add) at 1e-6 relative, since the
+    sums over a row's taps run in another order."""
+    flat, idx, g = _onehot_inputs(0)
+    out, vjp = jax.vjp(
+        lambda f: pallas_onehot_gather(f, jnp.asarray(idx), 0, True),
+        jnp.asarray(flat))
+    (want,) = vjp(jnp.asarray(g))
+    got_out, got = _torch_grad(flat, idx, g)
+    np.testing.assert_array_equal(got_out, np.asarray(out))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_onehot_gather_grad_clips_out_of_range():
+    """Indices past both ends: the forward reads the clipped rows, so the
+    gradient goes to them. The reference's backward is not the yardstick
+    here: ``pallas_gather.py:111`` scatters at the raw index, so -3 wraps
+    to row L-3 and L+2 is dropped, while its forward read rows 0 and L-1.
+    The clipped definition is written out with numpy."""
+    L = 30
+    flat, idx, g = _onehot_inputs(1, L=L, low=-4, high=L + 4)
+    idx[:, :2] = (-3, L + 2)
+    want = np.zeros_like(flat)
+    for b in range(flat.shape[0]):
+        np.add.at(want[b], np.clip(idx[b], 0, L - 1), g[b])
+    out, got = _torch_grad(flat, idx, g)
+    np.testing.assert_array_equal(
+        out, np.take_along_axis(flat, np.clip(idx, 0, L - 1)[..., None], 1))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert got[:, 0].any() and got[:, L - 1].any()
+
+
+@pytest.mark.parametrize("pile_up", [False, True])
+def test_onehot_backward_reference_equals_autograd(pile_up):
+    """The plain backward the kernel is held to on the card equals
+    autograd of the plain forward; the pile-up sends every tap to one
+    row."""
+    flat, idx, g = _onehot_inputs(2, low=-3, high=33)
+    if pile_up:
+        idx[:] = 7
+    tf = torch.from_numpy(flat).requires_grad_()
+    gather.onehot_gather_reference(tf, torch.from_numpy(idx)).backward(
+        torch.from_numpy(g))
+    got = gather.onehot_gather_backward_reference(
+        torch.from_numpy(g), torch.from_numpy(idx), flat.shape[1])
+    np.testing.assert_allclose(got.numpy(), tf.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_deformable_discrete_grads_match_reference():
+    """method="discrete" differentiates like the JAX function (the XLA
+    gather on the CPU, whose Pallas branch is the one-hot kernel above):
+    the gradients to the value levels and the attention weights at 1e-5.
+    The locations get none in either (the nearest index is a step)."""
+    from tests.test_torch_ops import _deformable_inputs
+
+    levels, loc, w = _deformable_inputs(5)
+    probe = np.random.default_rng(6).normal(size=(2, 7, 32)).astype(
+        np.float32)
+
+    def jloss(v0, v1, w_):
+        out = jdeform.ms_deformable_attention_shared(
+            [v0, v1], jnp.asarray(loc), w_, [4, 4], method="discrete")
+        return jnp.sum(out * probe)
+
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (*levels, w)))
+    tv = [torch.from_numpy(v).requires_grad_() for v in levels]
+    tw = torch.from_numpy(w).requires_grad_()
+    out = deformable.ms_deformable_attention_shared(
+        tv, torch.from_numpy(loc), tw, [4, 4], method="discrete")
+    (out * torch.from_numpy(probe)).sum().backward()
+    for t, want in zip((*tv, tw), grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [8, 128])
+@pytest.mark.parametrize("L", [1, 50, 2000, 8400, 20000])
+def test_scatter_tiles_cover_the_table_once(L, C):
+    """The backward kernels' d_flat tiles: each fits the 227 KB of shared
+    memory a block may have, the (row range, channel slice) blocks cover
+    every row and channel of a frame exactly once, and a table that fits
+    is one range (its taps are walked once per slice)."""
+    cs, rows = gather.scatter_tiles(L, C)
+    assert cs % 4 == 0 and C % cs == 0 and 1 <= rows <= L
+    assert rows * cs * 4 <= 227 * 1024
+    hits = np.zeros((L, C), np.int32)
+    for r0 in range(0, L, rows):           # the kernel's blockIdx.x
+        for c0 in range(0, C, cs):         # blockIdx.y
+            hits[r0:r0 + rows, c0:c0 + cs] += 1
+    assert (hits == 1).all()
+    assert (rows == L) == (L * cs * 4 <= 227 * 1024)

@@ -292,17 +292,21 @@ def _weighted_inputs(B, L, C, T, seed, device):
     return flat.to(device), idx.to(device), w.to(device)
 
 
-@pytest.mark.parametrize("shape", [(16, 2000, 128, 1200), (3, 50, 128, 37),
-                                   (2, 30, 8, 5)])
-def test_weighted_gather_kernel_matches_plain(cuda, shape):
+@pytest.mark.parametrize("shape,pile_up", [
+    ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
+    ((2, 30, 8, 5), False), ((2, 20000, 128, 500), False),
+    ((4, 2000, 128, 1200), True)])
+def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     """Forward and both gradients against the plain version and its
     autograd, to 1e-5 of the largest magnitude: the forward sums four
-    products in another order, and the backward's scatter runs in atomics
-    whose order changes from run to run. (16, 2000, 128) x 1200 taps is
-    the training path's; T=37 and C=8 are ragged."""
-    from pautdx_torch.ops import gather
-
+    products in another order, and the backward's scatter runs in
+    shared-memory atomics whose order changes from run to run. (16, 2000,
+    128) x 1200 taps is the training path's; T=37 and C=8 are ragged;
+    L=20000 splits the backward's rows into ranges; the pile-up sends
+    every corner of a frame to one row."""
     flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
+    if pile_up:
+        idx.fill_(shape[1] // 2)
     g = torch.from_numpy(np.random.default_rng(5).normal(
         size=(shape[0], shape[3], shape[2])).astype(np.float32)).to(cuda)
     before = (gather.WEIGHTED_LAUNCHES, gather.WEIGHTED_BACKWARD_LAUNCHES)
@@ -328,8 +332,6 @@ def test_weighted_gather_kernel_matches_plain(cuda, shape):
 
 
 def test_weighted_gather_kernel_refuses_what_it_cannot_take(cuda):
-    from pautdx_torch.ops import gather
-
     flat, idx, w = _weighted_inputs(2, 10, 128, 6, 0, cuda)
     before = gather.WEIGHTED_LAUNCHES
     with pytest.raises(TypeError, match="float32"):
@@ -345,25 +347,75 @@ def test_weighted_gather_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_inference_kernels_refuse_grad_mode(cuda):
-    """The one-hot gather and the attention kernel have no backward: under
+    """The attention kernel has no backward (nor has the TPU kernel): under
     grad mode an input that needs a gradient raises instead of cutting the
-    graph, and nothing is launched; under no_grad they run."""
-    from pautdx_torch.ops import gather
-
-    flat = _randn((2, 10, 128), 0, cuda, torch.float32).requires_grad_()
-    idx = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    graph, and nothing is launched; under no_grad it runs."""
     q = _randn((2, 40, 128), 1, cuda, torch.float32).requires_grad_()
-    before = (gather.LAUNCHES, attention.LAUNCHES)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gather.onehot_gather(flat, idx)
+    before = attention.LAUNCHES
     with pytest.raises(RuntimeError, match="no backward"):
         attention.aifi_attention(q, q, q, 8)
-    assert (gather.LAUNCHES, attention.LAUNCHES) == before
+    assert attention.LAUNCHES == before
     with torch.no_grad():
-        gather.onehot_gather(flat, idx)
         attention.aifi_attention(q, q, q, 8)
-    assert (gather.LAUNCHES, attention.LAUNCHES) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert attention.LAUNCHES == before + 1
+
+
+def _onehot_grad_inputs(B, L, C, T, seed, device, pile_up=False):
+    """A (B, L, C) f32 table, (B, T) indices past both ends (or all on one
+    row), and an output gradient."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.normal(size=(B, L, C)).astype(np.float32))
+    idx = rng.integers(-3, L + 3, (B, T)).astype(np.int32)
+    idx[:, :2] = (-3, L + 2)
+    if pile_up:
+        idx[:] = L // 2
+    g = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32))
+    return flat.to(device), torch.from_numpy(idx).to(device), g.to(device)
+
+
+@pytest.mark.parametrize("shape,pile_up", [
+    ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
+    ((2, 30, 8, 5), False), ((2, 20000, 128, 500), False),
+    ((4, 2000, 128, 1200), True)])
+def test_onehot_backward_kernel_matches_plain(cuda, shape, pile_up):
+    """The one-hot gather's gradient through autograd (the forward kernel,
+    then the backward kernel) and the backward kernel alone, against the
+    plain clipped scatter-add, to 1e-5 of the largest magnitude: the
+    kernel sums in shared-memory atomics whose order changes from run to
+    run. (16, 2000, 128) x 1200 is the discrete training step's shape;
+    T=37 and C=8 are ragged; L=20000 splits the rows into ranges; the
+    pile-up sends every tap of a frame to one row."""
+    B, L, C, T = shape
+    flat, idx, g = _onehot_grad_inputs(B, L, C, T, sum(shape), cuda, pile_up)
+    before = (gather.LAUNCHES, gather.ONEHOT_BACKWARD_LAUNCHES)
+    fk = flat.clone().requires_grad_()
+    out = gather.onehot_gather(fk, idx)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (gather.LAUNCHES, gather.ONEHOT_BACKWARD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out.detach(), gather.onehot_gather_reference(flat, idx))
+    want = gather.onehot_gather_backward_reference(g, idx, L)
+    tol = 1e-5 * want.abs().max().item()
+    torch.testing.assert_close(fk.grad, want, atol=tol, rtol=0)
+    got = gather.onehot_gather_backward(g, idx, L)
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_onehot_backward_kernel_refuses_what_it_cannot_take(cuda):
+    """A gradient other than float32 raises TypeError, through autograd
+    too, and nothing is launched."""
+    flat, idx, g = _onehot_grad_inputs(2, 10, 128, 6, 0, cuda)
+    before = gather.ONEHOT_BACKWARD_LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        gather.onehot_gather_backward(g.bfloat16(), idx, 10)
+    with pytest.raises(TypeError, match="int32"):
+        gather.onehot_gather_backward(g, idx.long(), 10)
+    fk = flat.bfloat16().requires_grad_()
+    out = gather.onehot_gather(fk, idx)
+    with pytest.raises(TypeError, match="float32"):
+        out.backward(g.bfloat16())
+    assert gather.ONEHOT_BACKWARD_LAUNCHES == before
 
 
 def test_yolo_predict_takes_any_layout_and_owns_its_precision(cuda):

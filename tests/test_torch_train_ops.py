@@ -91,16 +91,15 @@ def test_weighted_gather_validates():
 
 
 def test_kernels_without_backward_refuse_grad_mode():
-    """The one-hot gather and the attention kernel fill their outputs
-    outside autograd: on any device, an input that needs a gradient under
-    grad mode raises, and the same call under no_grad runs."""
+    """The attention kernel fills its output outside autograd (the TPU
+    kernel has no VJP either): on any device, an input that needs a
+    gradient under grad mode raises, and the same call under no_grad runs.
+    The one-hot gather has its backward: gradients flow through it."""
     from pautdx_torch.ops import attention
 
     flat = torch.zeros(2, 10, 16, requires_grad=True)
-    idx = torch.zeros(2, 3, dtype=torch.int32)
+    idx = torch.tensor([[0, 3, 3], [12, -1, 9]], dtype=torch.int32)
     q = torch.zeros(2, 5, 32, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gather.onehot_gather(flat, idx)
     with pytest.raises(RuntimeError, match="no backward"):
         attention.aifi_attention(q, q, q, 2)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -108,6 +107,9 @@ def test_kernels_without_backward_refuse_grad_mode():
     with torch.no_grad():
         assert gather.onehot_gather(flat, idx).shape == (2, 3, 16)
         assert attention.aifi_attention(q, q, q, 2).shape == q.shape
+    gather.onehot_gather(flat, idx).sum().backward()
+    assert flat.grad[0, :, 0].tolist() == [1, 0, 0, 2] + [0] * 6
+    assert flat.grad[1, :, 0].tolist() == [1] + [0] * 8 + [2]
 
 
 # ---------------------------------------------------------------- deformable
