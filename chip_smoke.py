@@ -1,8 +1,8 @@
 """Smoke run of pautdx_torch on one NVIDIA card: builds the CUDA kernels,
 holds each against its plain PyTorch version, then drives the D-FINE-nano
 640px serving path (the configuration of the root ``bench.py``), the
-YOLOv8n-seg 640px predict path and the D-FINE-nano 640px training step
-through their entry points.
+YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step and
+the HF-architecture D-FINE 640px predict path through their entry points.
 
     python3 chip_smoke.py
 
@@ -81,7 +81,30 @@ Phases, one line each, in order; any failure exits non-zero:
     one-hot): device time per call from ``torch.profiler``, every kernel
     and memset of the call summed (the wrappers' host time exceeds these
     kernels' device time, so CUDA events around one call measure the
-    host), and the event-timed call beside it.
+    host), and the event-timed call beside it;
+14. attention kernel vs plain at head dims 32 and 64, f32 and bf16, at
+    (32, 8, 400, dh) and a ragged N=37, directly and through the (B, N, D)
+    strides, at phase 3's gates;
+15. the widened envelopes vs their plain versions: the weighted gather
+    forward and backward with a bf16 table at (16, 2000, 128) x (1200, 4)
+    (w f32 and bf16, rows past both ends, a pile-up) and the one-hot
+    backward with a bf16 gradient, within one bf16 ulp at the largest
+    magnitude plus 1e-5 of it (each output is rounded to bf16 once, after
+    f32 sums that run in another order); masks at (4, 160, 160, 32) x
+    K=400 and at P=16 and P=37, within 1e-5; NMS with a bf16 IoU at
+    (32, 300), bit for bit;
+16. ``DFineConfig(num_labels=2, encoder_fused_attn=True)`` (HGNet stem, d_model
+    256, 8 heads of 32, 3 levels, per-head points, 6 decoder layers) in
+    f32 at batch 4, 640px: through the kernels, through the plain versions
+    and with ``encoder_fused_attn=False``, detection sets matched by
+    assignment; one forward launches the attention kernel once and no
+    gather;
+17. the predict runs: ``serve.dfine_predict.build_dfine_predictor`` over a
+    (4, 32, 640, 640, 3) uint8 slab made on the card, f32 (TF32 off) and
+    bf16 weights; counts the launches, checks the outputs are finite, times
+    frames/s through the kernels and, in turns with it, through the plain
+    versions, and records the attention kernel at the inputs each run gave
+    it (head dim 32), with SDPA at the same shape as its library call.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -130,6 +153,8 @@ TRAIN_TURN = 5            # timed steps per turn; six turns per arm
 GATHER_TOL = 1e-5         # of the largest magnitude; sums reordered
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+HF_BATCH = 32             # the HF-architecture predict run's micro-batch
+HF_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -279,6 +304,50 @@ def print_record(phase: str, r: dict, per: str) -> None:
           f"one call through the wrapper, CUDA events, {r['call_ms']:.4f} "
           f"ms; {r['launches']} launches {per}, max |err| "
           f"{r['max_abs_err']:.3g}", flush=True)
+
+
+def attention_record(torch, name: str, q, k, v, heads: int, launches: int,
+                     err: float, note: str) -> dict:
+    """The kernel record of the AIFI attention at the (B, N, D) inputs a
+    run gave it: device times of the kernel, its plain version and SDPA at
+    the same (B, heads, N, dh), and the bound, the largest of the bytes
+    (q, k, v read, o written), the products at the dtype's peak and the
+    B*H*N^2 exponentials on the SFUs (16 a clock on each SM at the card's
+    clocks.max.sm)."""
+    from pautdx_torch.ops import attention
+
+    B, N, D = q.shape
+    dh = D // heads
+    qh, kh, vh = (t.reshape(B, N, heads, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    F = torch.nn.functional
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4 * B * heads * N * N * dh
+    exps = B * heads * N * N
+    f_sm = max_sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = (PEAK_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+            else PEAK_F32_FLOP_PER_S)
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "operations": flops / rate,
+             "exp": exps / (SFU_EXP_PER_CLK_PER_SM * n_sm * f_sm)}
+    return dict(
+        name=name, route="cuda", source="pautdx_torch/csrc/aifi_attention.cu",
+        replaces="pautdx/ops/pallas_attention.py:35", launches=launches,
+        max_abs_err=err,
+        **kernel_times(
+            lambda: attention.aifi_attention(q, k, v, heads),
+            lambda: attention.aifi_attention_reference(q, k, v, heads),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+        bound_ms=1e3 * max(terms.values()),
+        bound_by=max(terms, key=terms.get),
+        shape=f"q/k/v {tuple(q.shape)} {str(q.dtype).split('.')[1]}, "
+              f"{heads} heads of {dh}, {note}; bound terms (ms) " + ", ".join(
+                  f"{k} {1e3 * t:.4f}" for k, t in terms.items())
+              + f" ({nbytes} bytes, {flops} FLOP at "
+              f"{rate / 1e12:.0f} TFLOP/s, {exps} exponentials over {n_sm} "
+              f"SMs x {SFU_EXP_PER_CLK_PER_SM} x {f_sm / 1e6:.0f} MHz "
+              f"clocks.max.sm)")
 
 
 def max_abs_err(got, want) -> float:
@@ -841,6 +910,255 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
     return records
 
 
+def bf16_ulps(want) -> float:
+    """One bf16 ulp at the largest magnitude of ``want`` (0 for a float32
+    tensor): the rounding an output gets once, which a reordered f32 sum
+    can tip to the neighbouring value."""
+    import torch
+
+    if want.dtype != torch.bfloat16:
+        return 0.0
+    return 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+
+
+def hf_phases(torch, dev, gen, counters: dict, wrappers: dict,
+              none: dict) -> list:
+    """Phases 14-17: the kernels at the inputs the HF-architecture D-FINE
+    and the widened envelopes give them, and that model's predict path;
+    returns the attention records of the predict runs."""
+    from pautdx_torch.models.vision.dfine import DFine
+    from pautdx_torch.ops import attention, gather, masks, suppress
+    from pautdx_torch.ops.nms import box_iou_matrix
+    from pautdx_torch.serve.dfine_predict import (
+        build_dfine_predictor, dfine_predict_config, make_dfine_stream,
+    )
+    from pautdx_torch.serve.throughput import make_uint8_slab, measure_fps
+
+    set_tf32(False)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # 14. attention kernel vs plain at head dims 32 and 64
+    worst = {}
+    for dh in (32, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            tol = ATTN_TOL[name]
+            for n in (400, 37):
+                q, k, v = (randn(HF_BATCH, 8, n, dh, dtype=dtype)
+                           for _ in range(3))
+                q = q * dh ** -0.5
+                x = [t.transpose(1, 2).reshape(HF_BATCH, n, 8 * dh)
+                     .contiguous() for t in (q, k, v)]
+                pairs = ((attention.fused_attention(q, k, v),
+                          attention.fused_attention_reference(q, k, v)),
+                         (attention.aifi_attention(*x, 8),
+                          attention.aifi_attention_reference(*x, 8)))
+                torch.cuda.synchronize()
+                for got, want in pairs:
+                    err = max_abs_err(got, want)
+                    check(got.dtype == dtype and got.shape == want.shape,
+                          f"attention dh={dh} {name} N={n}: got {got.dtype} "
+                          f"{tuple(got.shape)}")
+                    check(torch.allclose(got.float(), want.float(), atol=tol,
+                                         rtol=tol),
+                          f"attention dh={dh} {name} N={n}: max |err| "
+                          f"{err:.3g} beyond {tol}")
+                    key = f"dh={dh} {name} N={n}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    print(f"[14 attention head dims] kernel vs plain at ({HF_BATCH}, 8, N, "
+          f"dh), and through the (B, N, D) strides, max |err| "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in worst.items())
+          + "; phase 3's gates: atol=rtol 1e-5 in f32, 2e-2 in bf16",
+          flush=True)
+
+    # 15. the widened envelopes against their plain versions
+    def gate(got, want) -> float:
+        """max |got - want| over one bf16 ulp at |want| max (0 in f32) plus
+        GATHER_TOL of it; checked <= 1."""
+        peak = want.float().abs().max().item()
+        return max_abs_err(got, want) / (bf16_ulps(want) + GATHER_TOL * peak)
+
+    B, L, C, T = 16, 2000, 128, 1200
+    worst = {}
+    for pile_up in (False, True):
+        for wdt in (torch.float32, torch.bfloat16):
+            flat = randn(B, L, C, dtype=torch.bfloat16)
+            idx = torch.randint(-3, L + 3, (B, T, 4), generator=gen,
+                                device=dev, dtype=torch.int32)
+            if pile_up:
+                idx.fill_(L // 2)
+            w = torch.rand((B, T, 4), generator=gen, device=dev)
+            w[:, ::7, 2] = 0.0
+            w = w.to(wdt)
+            g = randn(B, T, C, dtype=torch.bfloat16)
+            fk, wk = flat.clone().requires_grad_(), w.clone().requires_grad_()
+            got = gather.weighted_gather(fk, idx, wk)
+            got.backward(g)
+            alone = gather.weighted_gather_backward(flat, idx, w, g)
+            torch.cuda.synchronize()
+            want = gather.weighted_gather_reference(flat, idx, w)
+            r_flat, r_w = gather.weighted_gather_backward_reference(
+                flat, idx, w, g)
+            check(got.dtype == torch.bfloat16 and wk.grad.dtype == wdt
+                  and alone[1].dtype == wdt, "weighted gather bf16: dtypes")
+            errs = (gate(got, want), gate(fk.grad, r_flat),
+                    gate(wk.grad, r_w), gate(alone[0], r_flat),
+                    gate(alone[1], r_w))
+            case = (f"w {str(wdt).split('.')[1]}"
+                    + (" pile-up" if pile_up else ""))
+            check(max(errs) <= 1.0, f"weighted gather bf16 {case}: (out, "
+                  f"d_flat, d_w, kernel alone) {errs} beyond the gate")
+            worst[case] = errs
+    flat = randn(B, L, C, dtype=torch.bfloat16)
+    for pile_up in (False, True):
+        idx = torch.randint(-3, L + 3, (B, T), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if pile_up:
+            idx.fill_(L // 2)
+        g = randn(B, T, C, dtype=torch.bfloat16)
+        fk = flat.clone().requires_grad_()
+        gather.onehot_gather(fk, idx).backward(g)
+        alone = gather.onehot_gather_backward(g, idx, L)
+        torch.cuda.synchronize()
+        want = gather.onehot_gather_backward_reference(g, idx, L)
+        errs = (gate(fk.grad, want), gate(alone, want))
+        case = "one-hot" + (" pile-up" if pile_up else "")
+        check(max(errs) <= 1.0 and alone.dtype == torch.bfloat16,
+              f"one-hot backward bf16 {case}: {errs} beyond the gate")
+        worst[case] = errs
+    print(f"[15 gathers bf16] kernels vs plain at ({B}, {L}, {C}) bf16 x "
+          f"({T}, 4) (one-hot: {T}), rows -3..L+2 clamped, corners of "
+          f"weight 0, w f32 and bf16, pile-ups: max |err| over (one bf16 "
+          f"ulp at |want| max + {GATHER_TOL} of it) for (out, d_flat, d_w, "
+          f"d_flat alone, d_w alone) / (through autograd, alone): "
+          + "; ".join(f"{k}: " + ", ".join(f"{e:.3g}" for e in v)
+                      for k, v in worst.items()) + " <= 1", flush=True)
+    worst = {}
+    for mb, P, K in ((4, 32, 400), (4, 16, 100), (4, 37, 100)):
+        protos = randn(mb, 160, 160, P)
+        coeffs = randn(mb, K, P)
+        xy = torch.rand((mb, K, 2), generator=gen, device=dev) * 700 - 60
+        wh = torch.rand((mb, K, 2), generator=gen, device=dev) * 320
+        mboxes = torch.cat([xy, xy + wh], -1)
+        got = masks.assemble_masks(protos, coeffs, mboxes, (640, 640))
+        torch.cuda.synchronize()
+        want = masks.assemble_masks_reference(protos, coeffs, mboxes,
+                                              (640, 640))
+        err = max_abs_err(got, want)
+        check(got.shape == want.shape and err <= MASK_TOL,
+              f"masks P={P} K={K}: max |err| {err:.3g} beyond {MASK_TOL}")
+        worst[f"({mb}, 160, 160, {P}) x K={K}"] = err
+    nb, nk = YOLO_BATCH, 300
+    xy = torch.rand((nb, nk, 2), generator=gen, device=dev) * 560
+    wh = 10 + torch.rand((nb, nk, 2), generator=gen, device=dev) * 150
+    iou = box_iou_matrix(torch.cat([xy, xy + wh], -1)).bfloat16()
+    valid = torch.rand((nb, nk), generator=gen, device=dev) > 0.2
+    got = suppress.nms_suppress(iou, valid, 0.45)
+    torch.cuda.synchronize()
+    want = suppress.nms_suppress_reference(iou, valid, 0.45)
+    check(torch.equal(got, want), "nms with a bf16 IoU differs from plain")
+    print("[15 masks, nms] mask kernel vs plain, f32, boxes off the image "
+          "included: max |err| " + ", ".join(
+              f"{k}: {v:.3g}" for k, v in worst.items())
+          + f" <= {MASK_TOL}; NMS with a bf16 IoU at ({nb}, {nk}) == plain "
+          f"bit for bit ({int(want.sum())} kept)", flush=True)
+
+    # 16. the HF-architecture model, f32, kernels vs plain versions
+    cfg = dfine_predict_config()
+    model = DFine(cfg, device=dev, seed=0)
+    frames = make_uint8_slab((4, 640, 640, 3), seed=7,
+                             device=dev).float() / 255.0
+    outs = {}
+    for arm in ("kernels", "plain", "unfused"):
+        if arm == "unfused":
+            model = DFine(dataclasses.replace(cfg, encoder_fused_attn=False),
+                          device=dev, seed=0)
+        reset_counts(counters)
+        with (plain_kernels(wrappers) if arm == "plain" else nullcontext()), \
+                torch.inference_mode():
+            out = model(frames)
+        torch.cuda.synchronize()
+        counts = launch_counts(counters)
+        want = dict(none, aifi_attention=1) if arm == "kernels" else none
+        check(counts == want, f"HF model {arm} forward launched {counts}, "
+              f"want {want}")
+        outs[arm] = [out[k].float().cpu().numpy()
+                     for k in ("logits", "pred_boxes")]
+    for arm in ("plain", "unfused"):
+        why = same_detections(*outs["kernels"], *outs[arm])
+        check(not why, f"HF model f32, kernels vs {arm}: {why}")
+    diffs = {arm: float(np.abs(outs["kernels"][0] - outs[arm][0]).max())
+             for arm in ("plain", "unfused")}
+    print(f"[16 HF model] DFineConfig(num_labels=2, encoder_fused_attn="
+          f"True) 640px f32 batch 4, TF32 off (d_model 256, 8 heads of 32, "
+          f"3 levels, 8,400 anchors, 300 queries, 6 decoder layers, per-head "
+          f"points): detections through the kernels match the plain "
+          f"versions' and the unfused encoder's by assignment (max |logit "
+          f"diff| slot by slot {diffs}); one forward launches "
+          f"{dict(none, aifi_attention=1)}", flush=True)
+    del model, frames, outs
+
+    # 17. the predict runs, f32 (the CLI's precision) and bf16 weights
+    records = []
+    slab = make_uint8_slab((HF_STEPS, HF_BATCH, 640, 640, 3), seed=8,
+                           device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        predictor = build_dfine_predictor(device=dev, seed=0, dtype=dtype)
+        stream = make_dfine_stream(predictor)
+        stream(slab[:1])                   # warm-up: cuDNN plans, caches
+        torch.cuda.synchronize()
+        captured = {}
+        with first_inputs(wrappers, captured):
+            reset_counts(counters)
+            det, finite = stream(slab)
+            torch.cuda.synchronize()
+            counts = launch_counts(counters)
+        check(counts == dict(none, aifi_attention=HF_STEPS),
+              f"HF predict run {name} launched {counts}")
+        check(bool(finite), f"HF predict {name} outputs are not all finite")
+        check(tuple(det["boxes"].shape) == (HF_BATCH, 16, 4),
+              f"HF predict {name} boxes {tuple(det['boxes'].shape)}")
+        fps = {"kernels": [], "plain": []}
+        for arm in ("kernels", "plain", "plain", "kernels") * 3:
+            with plain_kernels(wrappers) if arm == "plain" else nullcontext():
+                fps[arm].append(measure_fps(stream, slab))
+        print(f"[17 HF predict {name}] DFineConfig(num_labels=2, "
+              f"encoder_fused_attn=True) {name} weights, uint8 slab "
+              f"{tuple(slab.shape)} -> post_process(threshold=0.3, "
+              f"max_det=16), TF32 off: median "
+              f"{statistics.median(fps['kernels']):.1f} frames/s through the "
+              f"kernels {[round(f, 1) for f in fps['kernels']]}, median "
+              f"{statistics.median(fps['plain']):.1f} through the plain "
+              f"versions {[round(f, 1) for f in fps['plain']]} ({HF_STEPS} x "
+              f"{HF_BATCH} frames x 3 calls each, CUDA events, eager); "
+              f"launches over one slab: {counts}; outputs finite; "
+              f"{det['valid'].sum(1).tolist()} valid per frame in the last "
+              f"step", flush=True)
+        q, k, v, heads = captured["aifi_attention"]
+        got = attention.aifi_attention(q, k, v, heads)
+        want = attention.aifi_attention_reference(q, k, v, heads)
+        err = max_abs_err(got, want)
+        if dtype == torch.bfloat16:
+            # as phase 6: SERVING_ATTN_ULPS bf16 ulps at |out| max
+            tol = SERVING_ATTN_ULPS * bf16_ulps(want)
+            ok, limit = err <= tol, f"{SERVING_ATTN_ULPS} bf16 ulps {tol:.3g}"
+        else:
+            tol = ATTN_TOL[name]
+            ok = torch.allclose(got, want, atol=tol, rtol=tol)
+            limit = f"atol=rtol {tol}"
+        check(ok, f"HF predict attention {name}: max |err| {err:.3g} beyond "
+              f"{limit}")
+        records.append(attention_record(
+            torch, f"aifi_attention_dh32_{name}", q, k, v, heads,
+            counts["aifi_attention"], err, f"limit {limit}"))
+        print_record("17", records[-1], "over the slab")
+        del predictor, stream, captured, det
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -1016,8 +1334,6 @@ def main() -> None:
     kernels = []
     # AIFI attention at the inputs the serving run gave it
     q, k, v, heads = captured["aifi_attention"]
-    B, N, D = q.shape
-    dh = D // heads
     got = attention.aifi_attention(q, k, v, heads)
     want = attention.aifi_attention_reference(q, k, v, heads)
     err = max_abs_err(got, want)
@@ -1029,36 +1345,9 @@ def main() -> None:
     check(err <= tol, f"serving attention: max |err| {err:.3g} beyond "
           f"{SERVING_ATTN_ULPS} bf16 ulps at |out| max {peak:.3g} "
           f"({tol:.3g})")
-    qh, kh, vh = (t.reshape(B, N, heads, dh).transpose(1, 2).contiguous()
-                  for t in (q, k, v))
-    F = torch.nn.functional
-    nbytes = 4 * q.numel() * q.element_size()
-    flops = 4 * B * heads * N * N * dh
-    # one exponential per score; the SFUs give 16 a clock on each SM
-    exps = B * heads * N * N
-    f_sm = max_sm_clock_hz()
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
-             "operations": flops / PEAK_BF16_FLOP_PER_S,
-             "exp": exps / (SFU_EXP_PER_CLK_PER_SM * n_sm * f_sm)}
-    kernels.append(dict(
-        name="aifi_attention", route="cuda",
-        source="pautdx_torch/csrc/aifi_attention.cu",
-        replaces="pautdx/ops/pallas_attention.py:35",
-        launches=counts["aifi_attention"], max_abs_err=err,
-        **kernel_times(
-            lambda: attention.aifi_attention(q, k, v, heads),
-            lambda: attention.aifi_attention_reference(q, k, v, heads),
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
-        bound_ms=1e3 * max(terms.values()),
-        bound_by=max(terms, key=terms.get),
-        shape=f"q/k/v {tuple(q.shape)} {str(q.dtype).split('.')[1]}, "
-              f"{heads} heads, |out| max {peak:.3g}, limit {tol:.3g}; "
-              f"bound terms (ms) " + ", ".join(
-                  f"{k} {1e3 * t:.4f}" for k, t in terms.items())
-              + f" ({nbytes} bytes, {flops} FLOP, {exps} exponentials "
-              f"over {n_sm} SMs x {SFU_EXP_PER_CLK_PER_SM} x "
-              f"{f_sm / 1e6:.0f} MHz clocks.max.sm)"))
+    kernels.append(attention_record(
+        torch, "aifi_attention", q, k, v, heads, counts["aifi_attention"],
+        err, f"|out| max {peak:.3g}, limit {tol:.3g}"))
 
     # one-hot row gather at the inputs the serving run gave it
     flat, idx = captured["onehot_gather"]
@@ -1282,6 +1571,7 @@ def main() -> None:
     del predictor, yslab, ystream, captured, det
 
     kernels += train_phases(torch, dev, gen, counters, wrappers, none)
+    kernels += hf_phases(torch, dev, gen, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

@@ -17,10 +17,12 @@ input to bf16 weights (the query position head) computes in float32.
 Ported: head-shared sampling points with the bilinear
 ``decoder_method="default"`` (the ``weighted_gather`` kernel) and the
 discrete one (the ``onehot_gather`` kernel), both forward and backward, so
-either decoder trains; the fused AIFI attention kernel (inference only);
-and the training mode of ``forward(images, train=True)``: BatchNorm on
-batch statistics, dropout, and every ``stop_gradient`` of the reference as
-a ``.detach()`` at the same place. Per-head sampling points and the denoising queries raise
+either decoder trains; per-head sampling points (the HF-architecture
+``DFineConfig()``, plain PyTorch as in the reference); the fused AIFI
+attention kernel (inference only, head dims 16, 32 and 64); and the
+training mode of ``forward(images, train=True)``: BatchNorm on batch
+statistics, dropout, and every ``stop_gradient`` of the reference as a
+``.detach()`` at the same place. The denoising queries raise
 ``NotImplementedError``.
 """
 
@@ -486,19 +488,18 @@ class LQE(nn.Module):
 
 
 class DeformableAttention(nn.Module):
-    """Multi-scale deformable cross-attention, head-shared points branch."""
+    """Multi-scale deformable cross-attention (HF
+    DFineMultiscaleDeformableAttention): one set of sampling points shared
+    by all heads (``decoder_shared_points``, the gather kernels) or one per
+    head (the HF configs, ``deformable.ms_deformable_attention``)."""
 
     def __init__(self, cfg: DFineConfig):
         super().__init__()
-        if not cfg.decoder_shared_points:
-            raise NotImplementedError(
-                "per-head sampling points (decoder_shared_points=False, the "
-                "per-head ms_deformable_attention) are not ported yet; "
-                "head-shared points take decoder_method 'default' "
-                "(bilinear) or 'discrete' (ROADMAP.md, queue 1, item 6)")
         self.cfg = cfg
         total = sum(cfg.num_points_list)
-        self.sampling_offsets = Dense(cfg.d_model, total * 2)
+        self.n_loc = (1 if cfg.decoder_shared_points
+                      else cfg.decoder_attention_heads)
+        self.sampling_offsets = Dense(cfg.d_model, self.n_loc * total * 2)
         self.attention_weights = Dense(
             cfg.d_model, cfg.decoder_attention_heads * total)
         self._scale: Dict[torch.device, torch.Tensor] = {}
@@ -516,17 +517,23 @@ class DeformableAttention(nn.Module):
         B, Q, _ = hidden.shape
         pts = c.num_points_list
         total = sum(pts)
-        offsets = self.sampling_offsets(hidden).reshape(B, Q, total, 2)
+        offsets = self.sampling_offsets(hidden).reshape(B, Q, self.n_loc,
+                                                        total, 2)
         weights = torch.softmax(self.attention_weights(hidden).reshape(
             B, Q, c.decoder_attention_heads, total), dim=-1)
         # coordinate math in f32 whatever the feature dtype
         ref = reference_points.float()
         offset = (offsets.float() * self.point_scale(hidden.device)[:, None]
-                  * ref[:, :, None, 2:] * c.decoder_offset_scale)
-        locations = ref[:, :, None, :2] + offset
-        out = deformable.ms_deformable_attention_shared(
-            value_levels, locations, weights.to(value_levels[0].dtype), pts,
-            method=c.decoder_method)
+                  * ref[:, :, None, None, 2:] * c.decoder_offset_scale)
+        locations = ref[:, :, None, None, :2] + offset  # (B, Q, n_loc, P, 2)
+        w = weights.to(value_levels[0].dtype)
+        if c.decoder_shared_points:
+            out = deformable.ms_deformable_attention_shared(
+                value_levels, locations[:, :, 0], w, pts,
+                method=c.decoder_method)
+        else:
+            out = deformable.ms_deformable_attention(
+                value_levels, locations, w, pts, method=c.decoder_method)
         return out.to(hidden.dtype)
 
 

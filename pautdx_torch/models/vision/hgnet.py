@@ -7,11 +7,10 @@ tensors like the reference; inside, convolutions run NCHW on the same
 memory (an NHWC tensor permuted to NCHW is ``channels_last``, so the
 permutes copy nothing).
 
-Ported: the ``patchify``/``patchify8`` stems (conv or space-to-depth,
-including the pre-patchified uint8 wire format), ``Stage``,
-``BasicLayer``, ``ConvLayer(Light)`` and ``LearnableAffine``. The HF
-dual-path ``Embeddings`` stem and ``stem_s2d_impl="slices"`` raise
-``NotImplementedError``.
+Ported whole: the HF dual-path ``Embeddings`` stem (``stem="hgnet"``),
+the ``patchify``/``patchify8`` stems (conv or space-to-depth, with either
+``stem_s2d_impl``, including the pre-patchified uint8 wire format),
+``Stage``, ``BasicLayer``, ``ConvLayer(Light)`` and ``LearnableAffine``.
 """
 
 from __future__ import annotations
@@ -247,19 +246,51 @@ class Stage(nn.Module):
         return x
 
 
+class Embeddings(nn.Module):
+    """The HGNetV2 stem of HF D-FINE (``pautdx/models/vision/hgnet.py:
+    178-198``), NCHW: a stride-2 3x3 conv, then two paths over its output
+    padded by one row and column at the bottom and right, two 2x2 VALID
+    convs (a 2x2 ``ConvLayer`` pads (2-1)//2 = 0) and a 2x2 stride-1 max
+    pool, concatenated pool first, then a stride-2 3x3 conv and a 1x1
+    conv: stride 4 in all."""
+
+    def __init__(self, cfg: HGNetConfig):
+        super().__init__()
+        cin, c1, c2 = cfg.stem_channels
+        lab = cfg.use_learnable_affine_block
+        self.stem1 = ConvLayer(cin, c1, 3, stride=2, lab=lab)
+        self.stem2a = ConvLayer(c1, c1 // 2, 2, lab=lab)
+        self.stem2b = ConvLayer(c1 // 2, c1, 2, lab=lab)
+        self.stem3 = ConvLayer(2 * c1, c1, 3, stride=2, lab=lab)
+        self.stem4 = ConvLayer(c1, c2, 1, lab=lab)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        a = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        p = F.max_pool2d(x, 2, stride=1)
+        return self.stem4(self.stem3(torch.cat([p, a], dim=1)))
+
+
 class _S2DProj(nn.Module):
     """The patchify conv as space-to-depth + matmul, on NHWC.
 
     The weight is stored conv-style, (f, C, p, p); the patch is flattened
     in (ki, kj, c) order, so the weight is permuted to (f, p, p, C) before
-    its reshape to (f, p*p*C). An integer input (raw uint8 frames, with
-    1/255 folded into the weight by ``fold_uint8_stem``) is cast to the
-    weight's dtype before the matmul, as the reference does.
+    its reshape to (f, p*p*C). The patches come from one reshape and
+    permute. ``impl`` names how the reference lowers them on its device
+    ("transpose" or "slices", p*p strided slices concatenated in (ki, kj,
+    c) order); both are the same function, so both run this lowering.
+    An integer input (raw uint8 frames, with 1/255 folded into
+    the weight by ``fold_uint8_stem``) is cast to the weight's dtype before
+    the matmul, as the reference does.
     """
 
     def __init__(self, patch: int, in_channels: int, features: int,
-                 pre_patchified: bool = False):
+                 pre_patchified: bool = False, impl: str = "transpose"):
         super().__init__()
+        if impl not in ("transpose", "slices"):
+            raise ValueError(f"stem_s2d_impl={impl!r}: the lowerings are "
+                             f"'transpose' and 'slices'")
         self.patch = patch
         self.pre_patchified = pre_patchified
         self.weight = nn.Parameter(
@@ -299,11 +330,8 @@ class PatchifyStem(nn.Module):
         self.patch = patch
         self.s2d = cfg.stem_s2d
         if cfg.stem_s2d:
-            if cfg.stem_s2d_impl != "transpose":
-                raise NotImplementedError(
-                    f"stem_s2d_impl={cfg.stem_s2d_impl!r} is not ported; "
-                    f"'transpose' computes the same function")
-            self.proj = _S2DProj(patch, cin, f, cfg.stem_pre_patchified)
+            self.proj = _S2DProj(patch, cin, f, cfg.stem_pre_patchified,
+                                 cfg.stem_s2d_impl)
         else:
             self.proj = nn.Conv2d(cin, f, patch, patch, bias=False)
         self.norm = BatchNorm(f)
@@ -344,10 +372,11 @@ class HGNetV2(nn.Module):
             self.patch_embedder = PatchifyStem(
                 cfg, patch=cfg.stem_patch,
                 features=cfg.stage_in_channels[start])
+        elif cfg.stem == "hgnet":
+            self.embedder = Embeddings(cfg)
         else:
-            raise NotImplementedError(
-                f"HGNet stem {cfg.stem!r} (the HF Embeddings stem) is not "
-                f"ported yet (ROADMAP.md, queue 1, item 6)")
+            raise ValueError(f"HGNet stem {cfg.stem!r}: the stems are "
+                             f"'hgnet', 'patchify' and 'patchify8'")
         self.encoder = nn.Module()
         self.encoder.stages = nn.ModuleDict(
             {str(i): Stage(cfg, i)
@@ -355,7 +384,10 @@ class HGNetV2(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor) -> List[torch.Tensor]:
         feats = {}
-        x = self.patch_embedder(x)
+        if self.cfg.stem == "hgnet":
+            x = self.embedder(x.permute(0, 3, 1, 2))
+        else:
+            x = self.patch_embedder(x)
         for name, stage in self.encoder.stages.items():
             x = stage(x)
             feats[int(name)] = x

@@ -3,9 +3,10 @@ its plain PyTorch version and its launch counter.
 
 Counterpart of ``pautdx/ops/pallas_attention.py``. bf16 runs on the
 tensor cores (``mma.sync``), f32 on the CUDA cores; the dtype alone picks
-the path. On a CPU tensor the wrappers run the plain version; on a CUDA
-tensor they launch the kernel or raise. ``LAUNCHES`` counts kernel
-launches and nothing else. The kernel serves inference and has no
+the path. The kernel takes head dims 16, 32 and 64 (``HEAD_DIMS``). On a
+CPU tensor the wrappers run the plain version; on a CUDA tensor they
+launch the kernel or raise. ``LAUNCHES`` counts kernel launches and
+nothing else. The kernel serves inference and has no
 backward: the wrappers refuse inputs that need a gradient while grad mode
 is on, whatever the device.
 """
@@ -21,7 +22,9 @@ from pautdx_torch.ops import _build
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 16                  # the AIFI layer's: 128 channels, 8 heads
+# the kernel's instantiations: dfine_nano's AIFI layer has 16 (128
+# channels, 8 heads), DFineConfig()'s 32 (256, 8); 64 is the next power
+HEAD_DIMS = (16, 32, 64)
 # q, k, v, o, dtype, B, H, N, dh, batch/head/token strides, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
@@ -69,9 +72,9 @@ def _launch(q, k, v, B: int, H: int, N: int, dh: int,
     global LAUNCHES
     if q.device.type != "cuda":
         raise RuntimeError(f"attention: no kernel for device {q.device}")
-    if dh != _HEAD_DIM:
+    if dh not in HEAD_DIMS:
         raise ValueError(f"attention: head dim {dh}; the kernel is built "
-                         f"for {_HEAD_DIM}")
+                         f"for {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention: q/k/v must be contiguous")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16

@@ -13,7 +13,10 @@ PyTorch versions and their launch counters.
   both launch ``csrc/weighted_gather.cu`` on the card.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. ``LAUNCHES`` (the one-hot gather),
+launches its kernel or raises. The kernels of ``weighted_gather.cu`` take
+float32 and bfloat16 tables and gradients (w and d_w either on their own),
+sum in f32 and round each output once; the plain versions repeat that
+arithmetic. ``LAUNCHES`` (the one-hot gather),
 ``ONEHOT_BACKWARD_LAUNCHES``, ``WEIGHTED_LAUNCHES`` and
 ``WEIGHTED_BACKWARD_LAUNCHES`` count calls that launch a kernel and nothing
 else.
@@ -37,18 +40,21 @@ WEIGHTED_BACKWARD_LAUNCHES = 0
 # widest channel slice of a backward tile
 SMEM_BYTES = 232448
 MAX_SLICE = 16
+# the element types of weighted_gather.cu's kernels, as their C codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # flat, idx, out, B, L, T, row bytes, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong, ctypes.c_void_p])
-# flat, idx, w, out, B, L, T, K, C, stream
-_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+# flat, idx, w, out, B, L, T, K, C, dtype, wdtype, stream
+_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
-# flat, idx, w, g, d_flat, d_w, B, L, T, K, C, cs, rows, stream
-_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+# flat, idx, w, g, d_flat, d_w, B, L, T, K, C, cs, rows, dtype, wdtype,
+# stream
+_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
-# g, idx, d_flat, B, L, T, C, cs, rows, stream
-_ONEHOT_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+# g, idx, d_flat, B, L, T, C, cs, rows, dtype, stream
+_ONEHOT_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 
 
@@ -73,30 +79,31 @@ def onehot_gather_reference(flat: torch.Tensor,
 
 def onehot_gather_backward_reference(g: torch.Tensor, idx: torch.Tensor,
                                      L: int) -> torch.Tensor:
-    """g (B, T, C); idx (B, T) -> d_flat (B, L, C): row j of frame b is the
-    sum of g[b, t] over the taps t with clip(idx[b, t], 0, L-1) = j, the
-    VJP of :func:`onehot_gather_reference`."""
+    """g (B, T, C); idx (B, T) -> d_flat (B, L, C) in g's dtype: row j of
+    frame b is the sum of g[b, t] over the taps t with clip(idx[b, t], 0,
+    L-1) = j, the VJP of :func:`onehot_gather_reference`, summed in f32
+    and rounded once, as the kernel sums."""
     B, T, C = g.shape
     rows = (idx.clamp(0, L - 1).long()
             + L * torch.arange(B, device=idx.device)[:, None])
-    d_flat = torch.zeros((B * L, C), dtype=g.dtype, device=g.device)
-    d_flat.index_add_(0, rows.reshape(-1), g.reshape(-1, C))
-    return d_flat.reshape(B, L, C)
+    d_flat = torch.zeros((B * L, C), dtype=torch.float32, device=g.device)
+    d_flat.index_add_(0, rows.reshape(-1), g.reshape(-1, C).float())
+    return d_flat.reshape(B, L, C).to(g.dtype)
 
 
 def onehot_gather_backward(g: torch.Tensor, idx: torch.Tensor,
                            L: int) -> torch.Tensor:
-    """The backward kernel of :func:`onehot_gather`: d_flat (B, L, C) f32
-    for the output gradient g (B, T, C) f32, every element written by the
-    kernel. Its sums run in shared-memory atomics, in an order that changes
-    from run to run."""
+    """The backward kernel of :func:`onehot_gather`: d_flat (B, L, C) in
+    g's dtype for the output gradient g (B, T, C), float32 or bfloat16,
+    every element written by the kernel. Its f32 sums run in shared-memory
+    atomics, in an order that changes from run to run."""
     global ONEHOT_BACKWARD_LAUNCHES
     if g.device.type != "cuda" or idx.device != g.device:
         raise RuntimeError(f"onehot_gather_backward: no kernel for "
                            f"{g.device} and {idx.device}")
-    if g.dtype != torch.float32:
+    if g.dtype not in _DTYPES:
         raise TypeError(f"onehot_gather_backward: the kernel takes a float32 "
-                        f"gradient, got {g.dtype}")
+                        f"or bfloat16 gradient, got {g.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"onehot_gather_backward: idx must be int32, got "
                         f"{idx.dtype}")
@@ -105,7 +112,7 @@ def onehot_gather_backward(g: torch.Tensor, idx: torch.Tensor,
                          "contiguous")
     B, T, C = g.shape
     if C % 4 or g.data_ptr() % 16:
-        raise ValueError(f"onehot_gather_backward: the kernel moves float4 "
+        raise ValueError(f"onehot_gather_backward: the kernel moves 4-element "
                          f"pieces; got C={C} or g off 16-byte alignment")
     d_flat = torch.empty((B, L, C), dtype=g.dtype, device=g.device)
     if d_flat.numel() == 0:
@@ -115,7 +122,7 @@ def onehot_gather_backward(g: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(g.data_ptr(), idx.data_ptr(), d_flat.data_ptr(), B, L, T, C,
-                *scatter_tiles(L, C), stream)
+                *scatter_tiles(L, C), _DTYPES[g.dtype], stream)
         ONEHOT_BACKWARD_LAUNCHES += 1
     _build.check(rc, "onehot_gather_backward")
     return d_flat
@@ -174,7 +181,7 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     Differentiable in ``flat``: the gradient of a row is the sum of the
     output gradients of the taps that read it, at the clipped index (on the
-    card a float32 gradient only)."""
+    card a float32 or bfloat16 gradient)."""
     if flat.dim() != 3 or idx.dim() != 2 or idx.shape[0] != flat.shape[0]:
         raise ValueError(f"onehot_gather: want flat (B, L, C) and idx (B, T),"
                          f" got {tuple(flat.shape)} and {tuple(idx.shape)}")
@@ -194,32 +201,36 @@ def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def weighted_gather_reference(flat: torch.Tensor, idx: torch.Tensor,
                               w: torch.Tensor) -> torch.Tensor:
-    """flat (B, L, C); idx (B, T, K); w (B, T, K) -> (B, T, C) =
-    sum_k w[..., k] * flat[b, clip(idx[..., k], 0, L-1)], with autograd's
-    gradients to ``flat`` and ``w``."""
+    """flat (B, L, C); idx (B, T, K); w (B, T, K) -> (B, T, C) in flat's
+    dtype = sum_k w[..., k] * flat[b, clip(idx[..., k], 0, L-1)], with
+    autograd's gradients to ``flat`` and ``w``. As the TPU kernel does, w
+    is rounded to flat's dtype; the products and their sum are f32 and the
+    result is rounded once."""
     B, T, K = idx.shape
     L = flat.shape[1]
     i = idx.clamp(0, L - 1).long().reshape(B, T * K, 1)
     rows = torch.take_along_dim(flat, i, dim=1).reshape(B, T, K, -1)
-    return (rows * w[..., None].to(rows.dtype)).sum(dim=2)
+    wr = w.to(flat.dtype).float()[..., None]
+    return (rows.float() * wr).sum(dim=2).to(flat.dtype)
 
 
 def weighted_gather_backward_reference(
         flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The VJP of ``pallas_gather.py:196-210`` written out: d_flat is the
-    scatter-add of w_k * g into the clipped rows, d_w[..., k] =
-    <g, flat[clip(idx_k)]>."""
+    scatter-add of w_k * g into the clipped rows (w rounded to g's dtype
+    first), d_w[..., k] = <g, flat[clip(idx_k)]>; both summed in f32, as
+    the kernels sum, and rounded once to flat's and w's dtype."""
     B, T, K = idx.shape
     L, C = flat.shape[1:]
     i = idx.clamp(0, L - 1).long()
     rows = i + L * torch.arange(B, device=idx.device)[:, None, None]
-    d_flat = torch.zeros((B * L, C), dtype=g.dtype, device=g.device)
+    gf = g.float()[:, :, None, :]
+    d_flat = torch.zeros((B * L, C), dtype=torch.float32, device=g.device)
     d_flat.index_add_(0, rows.reshape(-1),
-                      (w[..., None].to(g.dtype) * g[:, :, None, :])
-                      .reshape(-1, C))
+                      (w.to(g.dtype).float()[..., None] * gf).reshape(-1, C))
     picked = flat.reshape(B * L, C)[rows.reshape(-1)].reshape(B, T, K, C)
-    d_w = (picked.to(g.dtype) * g[:, :, None, :]).sum(-1)
+    d_w = (picked.float() * gf).sum(-1)
     return d_flat.reshape(B, L, C).to(flat.dtype), d_w.to(w.dtype)
 
 
@@ -236,29 +247,34 @@ def _validate_weighted(flat, idx, w) -> None:
 
 
 def _check_kernel_inputs(*tensors) -> None:
-    flat, idx = tensors[:2]
+    flat, idx, w = tensors[:3]
     if flat.device.type != "cuda":
         raise RuntimeError(f"weighted_gather: no kernel for {flat.device}")
     if idx.dtype != torch.int32:
         raise TypeError(f"weighted_gather: idx must be int32, got {idx.dtype}")
-    floats = (tensors[0],) + tensors[2:]
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("weighted_gather: the kernel takes float32 flat, w "
-                        f"and gradients, got {[t.dtype for t in floats]}")
+    # flat and the gradient share one dtype; w has its own
+    tables = (flat,) + tensors[3:]
+    if flat.dtype not in _DTYPES or w.dtype not in _DTYPES or any(
+            t.dtype != flat.dtype for t in tables):
+        raise TypeError("weighted_gather: the kernel takes a float32 or "
+                        "bfloat16 flat (its gradient alike) and w, got "
+                        f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("weighted_gather: inputs must be contiguous")
     C = flat.shape[2]
-    if C % 4 or any(t.data_ptr() % 16 for t in (flat,) + tensors[3:]):
-        raise ValueError(f"weighted_gather: the kernel moves float4 pieces; "
-                         f"got C={C} or a row table off 16-byte alignment")
+    if C % 4 or any(t.data_ptr() % 16 for t in tables):
+        raise ValueError(f"weighted_gather: the kernel moves 4-element "
+                         f"pieces; got C={C} or a row table off 16-byte "
+                         f"alignment")
 
 
 def weighted_gather_backward(flat: torch.Tensor, idx: torch.Tensor,
                              w: torch.Tensor, g: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernels: (d_flat, d_w) of :func:`weighted_gather` for
-    the output gradient g (B, T, C). Every element of both is written by the
-    kernels; d_flat's sums run in shared-memory atomics, in an order that
+    the output gradient g (B, T, C) in flat's dtype; d_flat in flat's
+    dtype, d_w in w's. Every element of both is written by the kernels;
+    d_flat's f32 sums run in shared-memory atomics, in an order that
     changes from run to run, d_w's in a fixed order."""
     global WEIGHTED_BACKWARD_LAUNCHES
     _check_kernel_inputs(flat, idx, w, g)
@@ -274,7 +290,8 @@ def weighted_gather_backward(flat: torch.Tensor, idx: torch.Tensor,
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(),
                 d_flat.data_ptr(), d_w.data_ptr(), B, L, T, K, C,
-                *scatter_tiles(L, C), stream)
+                *scatter_tiles(L, C), _DTYPES[flat.dtype], _DTYPES[w.dtype],
+                stream)
         WEIGHTED_BACKWARD_LAUNCHES += 1
     _build.check(rc, "weighted_gather_backward")
     return d_flat, d_w
@@ -293,7 +310,7 @@ def _weighted_forward(flat, idx, w) -> torch.Tensor:
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                B, L, T, K, C, stream)
+                B, L, T, K, C, _DTYPES[flat.dtype], _DTYPES[w.dtype], stream)
         WEIGHTED_LAUNCHES += 1
     _build.check(rc, "weighted_gather")
     return out
@@ -315,8 +332,9 @@ class _WeightedGather(torch.autograd.Function):
 
 def weighted_gather(flat: torch.Tensor, idx: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
-    """flat (B, L, C) f32; idx (B, T, K) int32; w (B, T, K) f32 ->
-    (B, T, C) = sum_k w[..., k] * flat[b, clip(idx[..., k], 0, L-1)].
+    """flat (B, L, C) f32 or bf16; idx (B, T, K) int32; w (B, T, K) f32 or
+    bf16 -> (B, T, C) in flat's dtype = sum_k w[..., k] * flat[b,
+    clip(idx[..., k], 0, L-1)], w rounded to flat's dtype, summed in f32.
 
     Differentiable in ``flat`` and ``w``. Any T and K; on the card C must
     be a multiple of 4 (C=128 on the training path) and every tensor

@@ -21,8 +21,6 @@ import torch
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
-PROTO_DIM = 32                       # the kernel's P: Ultralytics' nm
-MAX_SHARED_BYTES = 48 * 1024         # a block's default shared memory
 
 # protos, coeffs, boxes, out, B, K, Hp, Wp, P, sx, sy, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -58,8 +56,9 @@ def assemble_masks(protos: torch.Tensor, coeffs: torch.Tensor,
                    boxes: torch.Tensor,
                    img_size: Tuple[int, int]) -> torch.Tensor:
     """protos (B, Hp, Wp, P); coeffs (B, K, P); boxes (B, K, 4) in image
-    px -> (B, K, Hp, Wp) f32 masks in [0, 1], zero outside the boxes. The
-    kernel takes f32 inputs, P = ``PROTO_DIM`` and K up to 341."""
+    px -> (B, K, Hp, Wp) f32 masks in [0, 1], zero outside the boxes. Any
+    P and K; inputs of another dtype are cast to f32 first, as the TPU
+    kernel's wrapper casts them."""
     global LAUNCHES
     if protos.dim() != 4 or coeffs.dim() != 3 or boxes.dim() != 3 or \
             coeffs.shape[0] != protos.shape[0] or \
@@ -75,27 +74,18 @@ def assemble_masks(protos: torch.Tensor, coeffs: torch.Tensor,
         return assemble_masks_reference(protos, coeffs, boxes, img_size)
     if protos.device.type != "cuda":
         raise RuntimeError(f"assemble_masks: no kernel for {protos.device}")
-    for name, t in (("protos", protos), ("coeffs", coeffs), ("boxes", boxes)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"assemble_masks: {name} must be float32, got "
-                            f"{t.dtype}")
+    if any(t.is_complex() for t in (protos, coeffs, boxes)):
+        raise TypeError("assemble_masks: complex inputs")
+    # the reference's .astype(jnp.float32): a no-op for f32 inputs
+    protos, coeffs, boxes = (t.to(torch.float32)
+                             for t in (protos, coeffs, boxes))
     B, Hp, Wp, P = protos.shape
     K = coeffs.shape[1]
-    if P != PROTO_DIM:
-        raise ValueError(f"assemble_masks: P={P} prototypes; the kernel is "
-                         f"built for P={PROTO_DIM}")
-    if K * (P + 4) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"assemble_masks: K={K} detections at P={P} need "
-                         f"{K * (P + 4) * 4} bytes of shared memory, over "
-                         f"{MAX_SHARED_BYTES}")
     if Hp * Wp >= 2 ** 31:
         raise ValueError("assemble_masks: more than 2^31 proto pixels")
     if not (protos.is_contiguous() and coeffs.is_contiguous()
             and boxes.is_contiguous()):
         raise ValueError("assemble_masks: inputs must be contiguous")
-    # the kernel reads each pixel's P values as float4
-    if protos.data_ptr() % 16:
-        raise ValueError("assemble_masks: protos must be 16-byte aligned")
     out = torch.empty((B, K, Hp, Wp), dtype=torch.float32,
                       device=protos.device)
     if out.numel() == 0:

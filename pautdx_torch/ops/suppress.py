@@ -19,7 +19,9 @@ import torch
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
-MAX_K = 1024                    # the sweep warp's 32 lanes x 32-bit words
+# the sweep warp's 32 lanes x 32-bit words; the TPU kernel's (K, K) f32
+# IoU must fit its scoped VMEM, about K <= 1,400-2,000
+MAX_K = 1024
 
 # iou, valid, keep, mask scratch, B, K, thr, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -45,9 +47,9 @@ def nms_suppress_reference(iou: torch.Tensor, valid: torch.Tensor,
 
 def nms_suppress(iou: torch.Tensor, valid: torch.Tensor,
                  iou_threshold: float = 0.45) -> torch.Tensor:
-    """The greedy sweep over a batch: iou (B, K, K) f32, valid (B, K) (any
-    dtype, cast to f32 as the TPU kernel casts it) -> keep (B, K) f32. The
-    kernel takes K <= 1024."""
+    """The greedy sweep over a batch: iou (B, K, K) of any float dtype and
+    valid (B, K) of any dtype, both cast to f32 as the TPU kernel casts
+    them -> keep (B, K) f32. The kernel takes K <= 1024."""
     global LAUNCHES
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2] or \
             tuple(valid.shape) != tuple(iou.shape[:2]):
@@ -60,8 +62,11 @@ def nms_suppress(iou: torch.Tensor, valid: torch.Tensor,
         return nms_suppress_reference(iou, valid, iou_threshold)
     if iou.device.type != "cuda":
         raise RuntimeError(f"nms_suppress: no kernel for {iou.device}")
-    if iou.dtype != torch.float32:
-        raise TypeError(f"nms_suppress: iou must be float32, got {iou.dtype}")
+    if not iou.is_floating_point():
+        raise TypeError(f"nms_suppress: iou must be a float tensor, got "
+                        f"{iou.dtype}")
+    # cast to f32 as the TPU kernel's wrapper casts it (a no-op for f32)
+    iou = iou.to(torch.float32)
     if not iou.is_contiguous():
         raise ValueError("nms_suppress: iou must be contiguous")
     B, K = valid.shape

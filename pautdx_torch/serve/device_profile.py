@@ -3,11 +3,14 @@
     python -m pautdx_torch.serve.device_profile          # D-FINE serving
     python -m pautdx_torch.serve.device_profile yolo     # YOLOv8n-seg predict
     python -m pautdx_torch.serve.device_profile train    # D-FINE training
+    python -m pautdx_torch.serve.device_profile hf       # HF D-FINE predict
 
 Builds the serving model of ``throughput.build_serving_model`` (an
 8 x 128-frame slab), the predictor of
-``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab) or the trainer
-of ``train.detector.build_dfine_trainer`` (one step of a 16-frame 640px
+``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab), the f32
+predictor of ``dfine_predict.build_dfine_predictor`` (the HF-architecture
+D-FINE, a 4 x 32-frame slab) or the trainer of
+``train.detector.build_dfine_trainer`` (one step of a 16-frame 640px
 batch, from numpy through the trainer's input pipeline), runs it once
 warm, times three more runs, then traces one more with ``torch.profiler``
 and prints, one line each: the traced run's wall time, the device's busy
@@ -33,7 +36,7 @@ from torch.autograd import DeviceType
 
 from pautdx_torch.device import resolve_device
 from pautdx_torch.losses import detr
-from pautdx_torch.serve import yolo_predict
+from pautdx_torch.serve import dfine_predict, yolo_predict
 from pautdx_torch.serve.throughput import (
     build_serving_model, make_streaming_forward, make_uint8_slab,
 )
@@ -75,13 +78,18 @@ def _path(name: str, dev: torch.device) -> Tuple[Callable, int, int]:
         stream = yolo_predict.make_yolo_stream(predictor)
         slab = yolo_predict.make_frame_slab(4, 32, seed=1, device=dev)
         return lambda: stream(slab), 4, 32
+    if name == "hf":
+        predictor = dfine_predict.build_dfine_predictor(device=dev, seed=0)
+        stream = dfine_predict.make_dfine_stream(predictor)
+        slab = make_uint8_slab((4, 32, 640, 640, 3), seed=1, device=dev)
+        return lambda: stream(slab), 4, 32
     if name == "train":
         trainer = build_dfine_trainer(device=dev, seed=0)
         batch = make_train_batches(1, 16, seed=1)
         state = trainer.init(batch[0])
         return lambda: trainer.train_epoch(state, batch), 1, 16
-    raise ValueError(f"device_profile: no path {name!r}; dfine, yolo or "
-                     f"train")
+    raise ValueError(f"device_profile: no path {name!r}; dfine, yolo, hf "
+                     f"or train")
 
 
 def main(path: str = "dfine") -> Dict:

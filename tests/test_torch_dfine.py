@@ -214,10 +214,15 @@ def test_backbone_matches_reference(jax_model, pre_patchified, s2d):
 
 
 def test_hgnet_config_is_stricter_than_reference():
+    """The reference takes any other stem name for the HF stem and any
+    other lowering for "transpose"; the port raises."""
     with pytest.raises(ValueError, match="patchify stem"):
         HGNetConfig(stem="hgnet", stem_s2d=True, stem_pre_patchified=True)
-    with pytest.raises(NotImplementedError):
-        HGNetV2(HGNetConfig(), device="cpu")
+    with pytest.raises(ValueError, match="the stems are"):
+        HGNetV2(HGNetConfig(stem="hgnet2"), device="cpu")
+    with pytest.raises(ValueError, match="lowerings"):
+        HGNetV2(HGNetConfig(stem="patchify", stem_s2d=True,
+                            stem_s2d_impl="gather"), device="cpu")
 
 
 def test_serving_slice_matches_reference(jax_model):

@@ -1,5 +1,6 @@
-"""The gradient of pautdx_torch's one-hot row gather, held to the JAX
-package on the CPU, and the tile plan of the gathers' backward kernels.
+"""The gradient of pautdx_torch's one-hot row gather, the bf16 forms of
+both gathers' plain versions and backwards, held to the JAX package on the
+CPU, and the tile plan of the gathers' backward kernels.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 Pallas kernel runs in interpret mode. The backward kernel itself is held to
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from pautdx.ops import deformable as jdeform
-from pautdx.ops.pallas_gather import pallas_onehot_gather
+from pautdx.ops.pallas_gather import (
+    pallas_onehot_gather, pallas_weighted_gather,
+)
 from pautdx_torch.ops import deformable, gather
 
 
@@ -129,3 +132,83 @@ def test_scatter_tiles_cover_the_table_once(L, C):
             hits[r0:r0 + rows, c0:c0 + cs] += 1
     assert (hits == 1).all()
     assert (rows == L) == (L * cs * 4 <= 227 * 1024)
+
+
+def _bf16(a):
+    """numpy f32 -> (torch bf16, the same values as numpy f32)."""
+    t = torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    return t, t.float().numpy()
+
+
+def _near(got, want, ulps):
+    """|got - want| within ``ulps`` bf16 ulps of want's largest magnitude."""
+    want = np.asarray(want, np.float64)
+    tol = ulps * 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_weighted_gather_bf16_matches_pallas(w_dtype):
+    """A bf16 table: the plain forward against ``pallas_weighted_gather``
+    (w rounded to bf16, an f32 sum, a bf16 result) within one bf16 ulp of
+    the output's largest magnitude; the plain backward (f32 sums, rounded
+    once) against ``jax.vjp`` of the Pallas kernel (sums in bf16) within
+    four, and against the exact sums of the same rounded operands within
+    one. d_w comes back in w's dtype."""
+    rng = np.random.default_rng(13)
+    B, L, C, T, K = 2, 30, 8, 40, 4
+    flat, flat_np = _bf16(rng.normal(size=(B, L, C)))
+    idx = rng.integers(-3, L + 3, (B, T, K)).astype(np.int32)
+    w = torch.from_numpy(rng.uniform(0, 1, (B, T, K)).astype(np.float32))
+    w = w.to(getattr(torch, w_dtype))
+    g, g_np = _bf16(rng.normal(size=(B, T, C)))
+    jw = jnp.asarray(w.float().numpy(), w_dtype)
+    want, vjp = jax.vjp(
+        lambda f, w_: pallas_weighted_gather(f, jnp.asarray(idx), w_, 0,
+                                             True),
+        jnp.asarray(flat_np, jnp.bfloat16), jw)
+    got = gather.weighted_gather(flat, torch.from_numpy(idx), w)
+    assert got.dtype == torch.bfloat16
+    _near(got.float().numpy(), np.asarray(want, np.float32), 1)
+    d_flat, d_w = gather.weighted_gather_backward_reference(
+        flat, torch.from_numpy(idx), w, g)
+    assert d_flat.dtype == torch.bfloat16 and d_w.dtype == w.dtype
+    j_flat, j_w = vjp(jnp.asarray(g_np, jnp.bfloat16))
+    _near(d_flat.float().numpy(), np.asarray(j_flat, np.float32), 4)
+    _near(d_w.float().numpy(), np.asarray(j_w, np.float32), 4)
+    # the exact sums of the rounded operands, in float64
+    j = np.clip(idx, 0, L - 1)
+    w64 = w.bfloat16().double().numpy()
+    e_flat = np.zeros((B, L, C))
+    for b in range(B):
+        np.add.at(e_flat[b], j[b].reshape(-1),
+                  (w64[b][..., None] * g_np[b][:, None, :].astype(np.float64))
+                  .reshape(-1, C))
+    rows = np.take_along_axis(flat_np.astype(np.float64),
+                              j.reshape(B, -1)[..., None], 1)
+    e_w = (rows.reshape(B, T, K, C) * g_np[:, :, None, :]).sum(-1)
+    _near(d_flat.float().numpy(), e_flat, 1)
+    _near(d_w.float().numpy(), e_w, 1)
+
+
+def test_onehot_backward_bf16_matches_pallas():
+    """A bf16 gradient: the plain one-hot backward (an f32 sum, rounded
+    once to bf16) against ``jax.vjp`` of ``pallas_onehot_gather`` (a bf16
+    scatter-add) within four bf16 ulps of the largest magnitude, and
+    against the exact sums within one; 100 taps a row on average, where
+    the Pallas VJP's bf16 sums drift (2.6 ulps with this seed)."""
+    flat, idx, g = _onehot_inputs(14, L=4, C=8, T=400)
+    gt, g_np = _bf16(g)
+    _, vjp = jax.vjp(lambda f: pallas_onehot_gather(f, jnp.asarray(idx), 0,
+                                                    True),
+                     jnp.asarray(flat, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(g_np, jnp.bfloat16))
+    got = gather.onehot_gather_backward_reference(gt, torch.from_numpy(idx),
+                                                  4)
+    assert got.dtype == torch.bfloat16
+    _near(got.float().numpy(), np.asarray(want, np.float32), 4)
+    exact = np.zeros((2, 4, 8))
+    for b in range(2):
+        np.add.at(exact[b], idx[b], g_np[b].astype(np.float64))
+    _near(got.float().numpy(), exact, 1)

@@ -108,10 +108,44 @@ def test_attention_kernel_matches_plain(cuda, dtype, N, scale):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("N", [400, 37, 600])
+def test_attention_kernel_matches_plain_at_head_dims(cuda, dtype, dh, N):
+    """Head dims 32 (DFineConfig()'s AIFI layer) and 64, at the gates of
+    the dh-16 test: 1e-5 in f32, 2e-2 in bf16. (32, 8, 400, 32) is the
+    HF-architecture eval path's shape; N=37 is ragged in queries and keys,
+    600 keys take two shared-memory chunks."""
+    dt = getattr(torch, dtype)
+    B = 32 if N == 400 else 3
+    q, k, v = (_randn((B, 8, N, dh), s, cuda, dt) for s in range(3))
+    q = q * dh ** -0.5
+    before = attention.LAUNCHES
+    got = attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = attention.fused_attention_reference(q, k, v)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    x = [t.transpose(1, 2).reshape(B, N, 8 * dh).contiguous()
+         for t in (q, k, v)]
+    got = attention.aifi_attention(*x, 8)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 2
+    want = attention.aifi_attention_reference(*x, 8)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_attention_kernel_refuses_what_it_cannot_take(cuda):
-    q = _randn((2, 4, 8, 24), 0, cuda, torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
-        attention.fused_attention(q, q, q)
+    """Head dims outside 16, 32 and 64 (24, 128), non-contiguous inputs
+    and bf16 off 16-byte alignment raise, and nothing is launched."""
+    before = attention.LAUNCHES
+    for dh in (24, 128):
+        q = _randn((2, 4, 8, dh), 0, cuda, torch.float32)
+        with pytest.raises(ValueError, match="head dim"):
+            attention.fused_attention(q, q, q)
+    assert attention.LAUNCHES == before
     q = _randn((2, 8, 4, 16), 0, cuda, torch.float32).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         attention.fused_attention(q, q, q)
@@ -218,14 +252,29 @@ def test_nms_kernel_edge_cases(cuda, case):
         assert torch.equal(want, valid.float())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float64"])
+def test_nms_kernel_takes_any_float_iou(cuda, dtype):
+    """An IoU of another float dtype is cast to f32, as the TPU kernel's
+    wrapper casts it: bit for bit the plain sweep on the cast values, at
+    the predict path's (32, 300)."""
+    iou, valid = _nms_inputs(32, 300, 3, cuda)
+    iou = iou.to(getattr(torch, dtype))
+    want = _nms_equal(iou, valid)
+    assert torch.equal(want, suppress.nms_suppress_reference(iou.float(),
+                                                             valid))
+
+
 def test_nms_kernel_refuses_what_it_cannot_take(cuda):
+    """K past 1024 (an open envelope gap: the TPU kernel's (K, K) f32 IoU
+    fits its VMEM to about K = 1,400-2,000), an integer IoU and a
+    non-contiguous one raise, and nothing is launched."""
     before = suppress.LAUNCHES
     iou, valid = _nms_inputs(1, 1025, 0, cuda)
     with pytest.raises(ValueError, match="at most 1024"):
         suppress.nms_suppress(iou, valid)
     iou, valid = _nms_inputs(2, 8, 0, cuda)
-    with pytest.raises(TypeError, match="float32"):
-        suppress.nms_suppress(iou.double(), valid)
+    with pytest.raises(TypeError, match="float"):
+        suppress.nms_suppress(iou.int(), valid)
     with pytest.raises(ValueError, match="contiguous"):
         suppress.nms_suppress(iou.transpose(1, 2), valid)
     assert suppress.LAUNCHES == before
@@ -246,10 +295,18 @@ def _mask_inputs(B, Hp, Wp, P, K, img, seed, device):
 
 
 @pytest.mark.parametrize("shape", [(32, 160, 160, 32, 100, (640, 640)),
-                                   (3, 24, 16, 32, 7, (96, 64))])
+                                   (3, 24, 16, 32, 7, (96, 64)),
+                                   (4, 160, 160, 32, 400, (640, 640)),
+                                   (2, 40, 40, 16, 400, (160, 160)),
+                                   (2, 40, 40, 37, 30, (160, 160)),
+                                   (2, 24, 24, 70, 9, (96, 96)),
+                                   (1, 16, 16, 5, 6, (64, 64))])
 def test_masks_kernel_matches_plain(cuda, shape):
     """atol = rtol = 1e-5 in f32 with TF32 off. (32, 160, 160, 32) at
-    K=100 is the predict path's; the other is uneven in Hp, Wp and K."""
+    K=100 is the predict path's; (3, 24, 16) is uneven in Hp, Wp and K;
+    K=400 takes two shared-memory chunks of detections; P=16, 5 and 37
+    are off the predict path's 32 (37 and 5 off a multiple of 4: scalar
+    loads), and P=37 and 70 past the 32 a thread keeps in registers."""
     B, Hp, Wp, P, K, img = shape
     protos, coeffs, boxes = _mask_inputs(B, Hp, Wp, P, K, img, sum(shape[:5]),
                                          cuda)
@@ -263,20 +320,32 @@ def test_masks_kernel_matches_plain(cuda, shape):
     assert (got[0, 1:4] == 0).all() and (got[0, 0] > 0).all()
 
 
-def test_masks_kernel_refuses_what_it_cannot_take(cuda):
-    protos, coeffs, boxes = _mask_inputs(2, 16, 16, 12, 5, (64, 64), 0, cuda)
+def test_masks_kernel_casts_inputs_to_float32(cuda):
+    """bf16 protos and coefficients and f16 boxes are cast to f32 before
+    the launch, as the TPU kernel's wrapper casts them: the plain version
+    on the same values within 1e-5."""
+    protos, coeffs, boxes = _mask_inputs(2, 40, 40, 32, 50, (160, 160), 4,
+                                         cuda)
+    args = (protos.bfloat16(), coeffs.bfloat16(), boxes.half())
     before = masks.LAUNCHES
-    with pytest.raises(ValueError, match="P=12"):
-        masks.assemble_masks(protos, coeffs, boxes, (64, 64))
+    got = masks.assemble_masks(*args, (160, 160))
+    torch.cuda.synchronize()
+    assert masks.LAUNCHES == before + 1 and got.dtype == torch.float32
+    want = masks.assemble_masks_reference(*(a.float() for a in args),
+                                          (160, 160))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_masks_kernel_refuses_what_it_cannot_take(cuda):
+    """Non-contiguous and complex inputs raise, and nothing is launched:
+    every P and K and every real dtype is taken."""
     protos, coeffs, boxes = _mask_inputs(2, 16, 16, 32, 5, (64, 64), 0, cuda)
-    with pytest.raises(TypeError, match="float32"):
-        masks.assemble_masks(protos.half(), coeffs, boxes, (64, 64))
+    before = masks.LAUNCHES
     with pytest.raises(ValueError, match="contiguous"):
         masks.assemble_masks(protos.transpose(1, 2), coeffs, boxes, (64, 64))
-    with pytest.raises(ValueError, match="shared memory"):
-        masks.assemble_masks(torch.zeros(1, 4, 4, 32, device=cuda),
-                             torch.zeros(1, 342, 32, device=cuda),
-                             torch.zeros(1, 342, 4, device=cuda), (16, 16))
+    with pytest.raises(TypeError, match="complex"):
+        masks.assemble_masks(protos.to(torch.complex64), coeffs, boxes,
+                             (64, 64))
     assert masks.LAUNCHES == before
 
 
@@ -331,14 +400,53 @@ def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
                                atol=1e-5 * r_w.abs().max().item())
 
 
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pile_up", [
+    ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
+    ((2, 20000, 128, 500), False), ((4, 2000, 128, 1200), True)])
+def test_weighted_gather_kernel_matches_plain_bf16(cuda, shape, pile_up,
+                                                   w_dtype):
+    """A bf16 table: forward, d_flat and d_w through autograd and the
+    backward kernels alone against the plain versions (w rounded to bf16,
+    f32 sums, each output rounded once), to one bf16 ulp of each output's
+    largest magnitude plus 1e-5 of it for the reordered f32 sums. d_w comes
+    back in w's dtype."""
+    flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
+    if pile_up:
+        idx.fill_(shape[1] // 2)
+    flat, w = flat.bfloat16(), w.to(getattr(torch, w_dtype))
+    g = _randn((shape[0], shape[3], shape[2]), 5, cuda, torch.bfloat16)
+    before = (gather.WEIGHTED_LAUNCHES, gather.WEIGHTED_BACKWARD_LAUNCHES)
+    fk, wk = flat.clone().requires_grad_(), w.clone().requires_grad_()
+    got = gather.weighted_gather(fk, idx, wk)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (gather.WEIGHTED_LAUNCHES, gather.WEIGHTED_BACKWARD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and wk.grad.dtype == w.dtype
+    want = gather.weighted_gather_reference(flat, idx, w)
+    d_flat, d_w = gather.weighted_gather_backward(flat, idx, w, g)
+    r_flat, r_w = gather.weighted_gather_backward_reference(flat, idx, w, g)
+    for a, b in ((got, want), (fk.grad, r_flat), (wk.grad, r_w),
+                 (d_flat, r_flat), (d_w, r_w)):
+        peak = b.float().abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(peak)) - 7) if a.dtype == \
+            torch.bfloat16 else 0.0
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=ulp + 1e-5 * peak)
+
+
 def test_weighted_gather_kernel_refuses_what_it_cannot_take(cuda):
     flat, idx, w = _weighted_inputs(2, 10, 128, 6, 0, cuda)
     before = gather.WEIGHTED_LAUNCHES
-    with pytest.raises(TypeError, match="float32"):
-        gather.weighted_gather(flat.bfloat16(), idx, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather.weighted_gather(flat.half(), idx, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather.weighted_gather_backward(
+            flat.bfloat16(), idx, w, torch.zeros(2, 6, 128, device=cuda))
     with pytest.raises(TypeError, match="int32"):
         gather.weighted_gather(flat, idx.long(), w)
-    with pytest.raises(ValueError, match="float4"):
+    with pytest.raises(ValueError, match="4-element"):
         gather.weighted_gather(flat[..., :6].contiguous(), idx, w)
     with pytest.raises(ValueError, match="contiguous"):
         gather.weighted_gather(flat.transpose(1, 2).contiguous()
@@ -402,19 +510,44 @@ def test_onehot_backward_kernel_matches_plain(cuda, shape, pile_up):
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("shape,pile_up", [
+    ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
+    ((4, 2000, 128, 1200), True)])
+def test_onehot_backward_kernel_matches_plain_bf16(cuda, shape, pile_up):
+    """A bf16 table and gradient through autograd, and the backward kernel
+    alone: the plain version (an f32 sum, rounded once to bf16) within one
+    bf16 ulp of the largest magnitude plus 1e-5 of it."""
+    B, L, C, T = shape
+    flat, idx, g = _onehot_grad_inputs(B, L, C, T, sum(shape), cuda, pile_up)
+    flat, g = flat.bfloat16(), g.bfloat16()
+    before = gather.ONEHOT_BACKWARD_LAUNCHES
+    fk = flat.clone().requires_grad_()
+    gather.onehot_gather(fk, idx).backward(g)
+    alone = gather.onehot_gather_backward(g, idx, L)
+    torch.cuda.synchronize()
+    assert gather.ONEHOT_BACKWARD_LAUNCHES == before + 2
+    want = gather.onehot_gather_backward_reference(g, idx, L)
+    peak = want.float().abs().max().item()
+    tol = 2.0 ** (np.floor(np.log2(peak)) - 7) + 1e-5 * peak
+    for got in (fk.grad, alone):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+
+
 def test_onehot_backward_kernel_refuses_what_it_cannot_take(cuda):
-    """A gradient other than float32 raises TypeError, through autograd
-    too, and nothing is launched."""
+    """A gradient other than float32 or bfloat16 raises TypeError, through
+    autograd too, and nothing is launched."""
     flat, idx, g = _onehot_grad_inputs(2, 10, 128, 6, 0, cuda)
     before = gather.ONEHOT_BACKWARD_LAUNCHES
-    with pytest.raises(TypeError, match="float32"):
-        gather.onehot_gather_backward(g.bfloat16(), idx, 10)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather.onehot_gather_backward(g.half(), idx, 10)
     with pytest.raises(TypeError, match="int32"):
         gather.onehot_gather_backward(g, idx.long(), 10)
-    fk = flat.bfloat16().requires_grad_()
+    fk = flat.half().requires_grad_()
     out = gather.onehot_gather(fk, idx)
-    with pytest.raises(TypeError, match="float32"):
-        out.backward(g.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        out.backward(g.half())
     assert gather.ONEHOT_BACKWARD_LAUNCHES == before
 
 

@@ -68,6 +68,24 @@ def test_nms_suppress_reference_matches_pallas(K):
         torch.from_numpy(iou), torch.from_numpy(valid > 0), thr))
 
 
+def test_nms_suppress_takes_bf16_iou():
+    """A bf16 IoU is cast to f32, as ``nms_suppress`` casts it
+    (``pallas_nms.py:59``): the same keep mask as the Pallas sweep given the
+    same bf16 values, exactly."""
+    thr = 0.45
+    iou, valid = _sweep_inputs(300, 9, thr)
+    iou16 = torch.from_numpy(iou).bfloat16()
+    got = suppress.nms_suppress(iou16, torch.from_numpy(valid), thr)
+    assert got.dtype == torch.float32
+    for b in range(2):
+        want = j_nms_suppress(jnp.asarray(iou16[b].float().numpy(),
+                                          jnp.bfloat16),
+                              jnp.asarray(valid[b]), thr, interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+    assert torch.equal(got, suppress.nms_suppress_reference(
+        iou16.float(), torch.from_numpy(valid), thr))
+
+
 def test_nms_suppress_validates():
     iou = torch.zeros(2, 5, 5)
     with pytest.raises(ValueError, match="want iou"):
@@ -154,6 +172,8 @@ def test_batched_nms_refuses_more_slots_than_candidates():
     (2, 32, 32, 8, 5, (128, 128)),
     (1, 24, 16, 4, 3, (96, 64)),        # uneven: Hp % 16 != 0, H != W
     (2, 16, 16, 32, 12, (64, 64)),      # the predict path's P
+    (1, 16, 16, 16, 400, (64, 64)),     # K past one shared-memory chunk
+    (1, 12, 12, 37, 9, (48, 48)),       # P off a multiple of 4, over 32
 ])
 def test_assemble_masks_reference_matches_pallas_and_xla(shape):
     """atol = rtol = 1e-5 in f32, the gate of tests/test_pallas_ops.py."""
@@ -186,3 +206,24 @@ def test_assemble_masks_validates():
     with pytest.raises(ValueError, match="want protos"):
         masks.assemble_masks(protos, torch.zeros(2, 3, 4),
                              torch.zeros(2, 2, 4), (32, 32))
+
+
+def test_assemble_masks_casts_inputs_to_float32():
+    """bf16 protos and coefficients and f16 boxes are cast to f32, as
+    ``pallas_assemble_masks`` casts them (``pallas_mask.py:101``): the
+    Pallas kernel's masks on the same values within 1e-5."""
+    rng = np.random.default_rng(12)
+    protos = torch.from_numpy(rng.normal(size=(2, 16, 16, 32))
+                              .astype(np.float32)).bfloat16()
+    coeffs = torch.from_numpy(rng.normal(size=(2, 7, 32))
+                              .astype(np.float32)).bfloat16()
+    boxes = torch.from_numpy(_boxes(rng, (2, 7), hi=40.0)).half()
+    got = masks.assemble_masks(protos, coeffs, boxes, (64, 64))
+    assert got.dtype == torch.float32
+    want = pallas_assemble_masks(
+        jnp.asarray(protos.float().numpy(), jnp.bfloat16),
+        jnp.asarray(coeffs.float().numpy(), jnp.bfloat16),
+        jnp.asarray(boxes.float().numpy(), jnp.float16), (64, 64),
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
