@@ -12,8 +12,8 @@ Phases, one line each, in order; any failure exits non-zero:
 2. build: ``nvcc`` of every ``pautdx_torch/csrc/*.cu``, all at once, and
    each kernel's registers, static shared memory and spills from the
    ``-Xptxas -v`` log;
-3. attention kernel vs plain at (128, 8, 400, 16), f32 (CUDA cores) and
-   bf16 (tensor cores), and at a ragged N=37;
+3. attention kernel vs plain at (128, 8, 400, 16), f32 (3xTF32 on the
+   tensor cores) and bf16 (tensor cores), and at a ragged N=37;
 4. gather kernel vs plain at (128, 2000, 128) x 1200 taps, bf16 and f32,
    indices out of range included: bit for bit;
 5. the full model in f32 at batch 4, once through the kernels and once
@@ -27,7 +27,8 @@ Phases, one line each, in order; any failure exits non-zero:
    computes the same function (device times per call from
    ``torch.profiler``, the event-timed call through the wrapper beside
    them; attention's bound counts its exponentials on the SFUs at the
-   card's ``clocks.max.sm``);
+   card's ``clocks.max.sm``), and the attention kernel in f32 on the same
+   inputs, the f32 model's kernel;
 7. NMS sweep kernel vs plain at (32, 300) candidates, ties at the
    threshold and invalid slots included: bit for bit;
 8. mask decode kernel vs plain at (32, 160, 160, 32) protos, K=100, boxes
@@ -82,9 +83,9 @@ Phases, one line each, in order; any failure exits non-zero:
     and memset of the call summed (the wrappers' host time exceeds these
     kernels' device time, so CUDA events around one call measure the
     host), and the event-timed call beside it;
-14. attention kernel vs plain at head dims 32 and 64, f32 and bf16, at
-    (32, 8, 400, dh) and a ragged N=37, directly and through the (B, N, D)
-    strides, at phase 3's gates;
+14. attention kernel vs plain at every head dim of ``HEAD_DIMS`` (1 to
+    256), f32 and bf16, at (32, 8, 400, dh) and a ragged N=37, directly
+    and through the (B, N, D) strides, at phase 3's gates;
 15. the widened envelopes vs their plain versions: the weighted gather
     forward and backward with a bf16 table at (16, 2000, 128) x (1200, 4)
     (w f32 and bf16, rows past both ends, a pile-up) and the one-hot
@@ -104,13 +105,18 @@ Phases, one line each, in order; any failure exits non-zero:
     bf16 weights; counts the launches, checks the outputs are finite, times
     frames/s through the kernels and, in turns with it, through the plain
     versions, and records the attention kernel at the inputs each run gave
-    it (head dim 32), with SDPA at the same shape as its library call.
+    it (head dim 32), with SDPA at the same shape as its library call;
+18. NMS sweep kernel vs plain past the shared-memory bitmask, at K = 1025,
+    1500, 2048 and 4096 candidates (B = 4), ties at the threshold and
+    invalid slots included: bit for bit.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a card, or without the package beside it, the script exits
-non-zero and prints no result.
+non-zero and prints no result. Every device time of a kernel record is
+taken with L2 flushed before each call (``FLUSH_BYTES``), so the bytes of
+its bound come from HBM in the timed call too.
 """
 
 from __future__ import annotations
@@ -130,10 +136,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet: HBM rate, dense bf16 tensor-core rate, and the f32
-# rate of the CUDA cores
+# H100 SXM data sheet: HBM rate, dense bf16 and TF32 tensor-core rates,
+# and the f32 rate of the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_F32_FLOP_PER_S = 67e12
 # exponentials per clock per SM from the special-function units (the CUDA
 # programming guide's throughput table, compute capability 9.0)
@@ -155,6 +162,15 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 HF_BATCH = 32             # the HF-architecture predict run's micro-batch
 HF_STEPS = 4
+# bytes written before each timed call of a kernel record, twice the 50 MB
+# L2, so that every call finds its inputs in HBM, as the bounds count them
+# (0: no flush)
+FLUSH_BYTES = 128 * 2**20
+# head dims of phase 14: every instantiation of the attention kernel (16,
+# 32, 64, 128, 256), short ones padded (1, 8, 24, 37, 48), column blocks
+# (80, 100, 200), and off 16-byte alignment (1, 37, 100 in bf16)
+HEAD_DIMS = (1, 8, 16, 24, 32, 37, 48, 64, 80, 100, 128, 200, 256)
+WIDE_NMS_K = (1025, 1500, 2048, 4096)
 
 
 def fail(msg: str) -> None:
@@ -188,15 +204,15 @@ def max_sm_clock_hz() -> float:
 
 def short_name(sym: str) -> str:
     """A mangled kernel name's last component, with its raw template
-    arguments: ``_ZN12_GLOBAL__N_111attn_kernelIfLi16EEEv..`` ->
-    ``attn_kernel<fLi16>``."""
+    arguments: ``_ZN12_GLOBAL__N_111attn_kernelILi16ELi16ELb1EEEv..`` ->
+    ``attn_kernel<Li16,Li16,Lb1>``."""
     i, name = (3 if sym.startswith("_ZN") else 2), sym
     while i < len(sym) and sym[i].isdigit():
         n = re.match(r"\d+", sym[i:]).group()
         i += len(n)
         name, i = sym[i:i + int(n)], i + int(n)
     if sym[i:i + 1] == "I":
-        name += "<" + sym[i + 1:sym.find("E", i)] + ">"
+        name += "<" + sym[i + 1:sym.find("EE", i)].replace("E", ",") + ">"
     return name
 
 
@@ -242,18 +258,32 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def flush_l2(buf) -> None:
+    """Overwrite ``buf`` (FLUSH_BYTES on the card) in place, which evicts
+    whatever the 50 MB L2 held: a ``bitwise_not`` kernel, a name no kernel
+    record's own work launches, so :func:`device_ms` can leave it out."""
+    import torch
+
+    torch.bitwise_not(buf, out=buf)
+
+
 def device_ms(fn, reps: int = 20, parts: dict = None) -> float:
-    """Device time of one call: the summed durations of the kernels,
-    memsets and copies that ``reps`` calls put on the card, as
-    ``torch.profiler`` traces them, over ``reps``. Unlike :func:`time_ms`
-    it leaves out the gaps in which the card waits for the host. Fills
-    ``parts``, if given, with the ms per call of each kernel name."""
+    """Device time of one call: the kernels, memsets and copies that
+    ``reps`` calls put on the card, as ``torch.profiler`` traces them, each
+    name's mean duration times its launches a call. Unlike :func:`time_ms`
+    it leaves out the gaps in which the card waits for the host. Before
+    each call L2 is flushed (:func:`flush_l2`, left out of the sum), so
+    each call reads its inputs from HBM, as the first call of a step
+    finds them. Fills ``parts``, if given, with the ms per call of each
+    kernel name."""
     import torch
     from torch.autograd import DeviceType
 
     for _ in range(3):
         fn()
+    buf = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
+    flush = flush_l2 if FLUSH_BYTES else (lambda _: None)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # a trace now and then comes back without its device events (seen
@@ -261,22 +291,33 @@ def device_ms(fn, reps: int = 20, parts: dict = None) -> float:
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
+                flush(buf)
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
+                  and not getattr(e, "is_user_annotation", False)
+                  and "bitwise_not" not in e.name]
         if events:
             break
     check(bool(events), "the profiler saw no device activity")
-    for e in events if parts is not None else ():
-        name = re.split(r"[<(]", e.name.replace("(anonymous namespace)::",
-                                                ""))[0]
+    # a trace also misses some of its device events now and then (one or
+    # two of a kernel's 20 in several traces of this script on the card,
+    # and once 18 of 20): every call puts the same kernels on the card, so
+    # a name's time a call is its mean duration times its launches a
+    # call, its count over reps rounded, at least one
+    durations = {}
+    for e in events:
+        durations.setdefault(e.name, []).append(
+            (e.time_range.end - e.time_range.start) / 1e3)
+    per_call = {name: sum(d) / len(d) * max(1, round(len(d) / reps))
+                for name, d in durations.items()}
+    for full, ms in per_call.items() if parts is not None else ():
+        name = re.split(r"[<(]", full.replace("(anonymous namespace)::",
+                                              ""))[0]
         name = (name.split("::")[-1].split() or ["?"])[-1]
-        parts[name] = parts.get(name, 0.0) + (
-            e.time_range.end - e.time_range.start) / reps / 1e3
-    return sum(e.time_range.end - e.time_range.start
-               for e in events) / reps / 1e3
+        parts[name] = parts.get(name, 0.0) + ms
+    return sum(per_call.values())
 
 
 def kernel_times(fn, plain, library=None) -> dict:
@@ -311,9 +352,11 @@ def attention_record(torch, name: str, q, k, v, heads: int, launches: int,
     """The kernel record of the AIFI attention at the (B, N, D) inputs a
     run gave it: device times of the kernel, its plain version and SDPA at
     the same (B, heads, N, dh), and the bound, the largest of the bytes
-    (q, k, v read, o written), the products at the dtype's peak and the
-    B*H*N^2 exponentials on the SFUs (16 a clock on each SM at the card's
-    clocks.max.sm)."""
+    (q, k, v read, o written), the products and the B*H*N^2 exponentials
+    on the SFUs (16 a clock on each SM at the card's clocks.max.sm). bf16
+    products count at the bf16 tensor-core peak; f32-accurate products at
+    the faster of the CUDA cores' f32 peak and three TF32 products each
+    (3xTF32) at the TF32 tensor-core peak, whatever design ships."""
     from pautdx_torch.ops import attention
 
     B, N, D = q.shape
@@ -326,11 +369,19 @@ def attention_record(torch, name: str, q, k, v, heads: int, launches: int,
     exps = B * heads * N * N
     f_sm = max_sm_clock_hz()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    rate = (PEAK_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-            else PEAK_F32_FLOP_PER_S)
     terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
-             "operations": flops / rate,
              "exp": exps / (SFU_EXP_PER_CLK_PER_SM * n_sm * f_sm)}
+    if q.dtype == torch.bfloat16:
+        terms["operations"] = flops / PEAK_BF16_FLOP_PER_S
+        rates = f"{flops} FLOP at {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s"
+    else:
+        terms["f32 CUDA cores"] = flops / PEAK_F32_FLOP_PER_S
+        terms["3xTF32"] = 3 * flops / PEAK_TF32_FLOP_PER_S
+        terms["operations"] = min(terms["f32 CUDA cores"], terms["3xTF32"])
+        rates = (f"{flops} FLOP at {PEAK_F32_FLOP_PER_S / 1e12:.0f} "
+                 f"TFLOP/s on the CUDA cores or 3 x that at "
+                 f"{PEAK_TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32")
+    bound = max(terms["bytes"], terms["exp"], terms["operations"])
     return dict(
         name=name, route="cuda", source="pautdx_torch/csrc/aifi_attention.cu",
         replaces="pautdx/ops/pallas_attention.py:35", launches=launches,
@@ -339,13 +390,13 @@ def attention_record(torch, name: str, q, k, v, heads: int, launches: int,
             lambda: attention.aifi_attention(q, k, v, heads),
             lambda: attention.aifi_attention_reference(q, k, v, heads),
             lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
-        bound_ms=1e3 * max(terms.values()),
-        bound_by=max(terms, key=terms.get),
+        bound_ms=1e3 * bound,
+        # the exponentials are operations too, on the SFUs
+        bound_by="bytes" if terms["bytes"] >= bound else "operations",
         shape=f"q/k/v {tuple(q.shape)} {str(q.dtype).split('.')[1]}, "
               f"{heads} heads of {dh}, {note}; bound terms (ms) " + ", ".join(
                   f"{k} {1e3 * t:.4f}" for k, t in terms.items())
-              + f" ({nbytes} bytes, {flops} FLOP at "
-              f"{rate / 1e12:.0f} TFLOP/s, {exps} exponentials over {n_sm} "
+              + f" ({nbytes} bytes, {rates}, {exps} exponentials over {n_sm} "
               f"SMs x {SFU_EXP_PER_CLK_PER_SM} x {f_sm / 1e6:.0f} MHz "
               f"clocks.max.sm)")
 
@@ -939,9 +990,10 @@ def hf_phases(torch, dev, gen, counters: dict, wrappers: dict,
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # 14. attention kernel vs plain at head dims 32 and 64
+    # 14. attention kernel vs plain at every head dim it pads to, pads, or
+    # splits into column blocks
     worst = {}
-    for dh in (32, 64):
+    for dh in HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             tol = ATTN_TOL[name]
@@ -972,6 +1024,9 @@ def hf_phases(torch, dev, gen, counters: dict, wrappers: dict,
           + ", ".join(f"{k}: {v:.3g}" for k, v in worst.items())
           + "; phase 3's gates: atol=rtol 1e-5 in f32, 2e-2 in bf16",
           flush=True)
+    worst_f32 = max(v for k, v in worst.items() if "float32" in k)
+    print(f"[14 attention f32] largest max |err| over every head dim and N: "
+          f"{worst_f32:.3g} (3xTF32), gate 1e-5", flush=True)
 
     # 15. the widened envelopes against their plain versions
     def gate(got, want) -> float:
@@ -1247,10 +1302,10 @@ def main() -> None:
         worst[f"{name} N={n}"] = err
     print("[3 attention] kernel vs plain at (128, 8, N, 16), max |err| "
           + ", ".join(f"{k}: {v:.3g}" for k, v in worst.items())
-          + "; tolerance atol=rtol 1e-5 in f32 (CUDA cores, TF32 off), "
-          "2e-2 in bf16 (tensor cores; the plain version rounds the "
-          "normalized probabilities to bf16 before P.V, the kernel the "
-          "unnormalized ones)", flush=True)
+          + "; tolerance atol=rtol 1e-5 in f32 (3xTF32 on the tensor cores, "
+          "TF32 off for the plain version), 2e-2 in bf16 (tensor cores; the "
+          "plain version rounds the normalized probabilities to bf16 before "
+          "P.V, the kernel the unnormalized ones)", flush=True)
 
     # 4. gather kernel vs plain
     L, T = 2000, 1200
@@ -1348,6 +1403,21 @@ def main() -> None:
     kernels.append(attention_record(
         torch, "aifi_attention", q, k, v, heads, counts["aifi_attention"],
         err, f"|out| max {peak:.3g}, limit {tol:.3g}"))
+    # the same inputs in f32: the kernel of the f32 model (phase 5, one
+    # launch a forward), at the serving shape
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    got = attention.aifi_attention(qf, kf, vf, heads)
+    want = attention.aifi_attention_reference(qf, kf, vf, heads)
+    err = max_abs_err(got, want)
+    tol = ATTN_TOL["float32"]
+    check(torch.allclose(got, want, atol=tol, rtol=tol),
+          f"serving inputs in f32: attention max |err| {err:.3g} beyond "
+          f"atol=rtol {tol}")
+    kernels.append(attention_record(
+        torch, "aifi_attention_dh16_float32", qf, kf, vf, heads, launches[0],
+        err, f"the serving run's inputs in f32, limit atol=rtol {tol}; "
+             f"launches: one f32 forward of phase 5"))
+    del qf, kf, vf
 
     # one-hot row gather at the inputs the serving run gave it
     flat, idx = captured["onehot_gather"]
@@ -1572,6 +1642,33 @@ def main() -> None:
 
     kernels += train_phases(torch, dev, gen, counters, wrappers, none)
     kernels += hf_phases(torch, dev, gen, counters, wrappers, none)
+
+    # 18. NMS sweep kernel vs plain past the shared-memory bitmask
+    nb, found = 4, []
+    for nk in WIDE_NMS_K:
+        xy = torch.rand((nb, nk, 2), generator=gen, device=dev) * 1200
+        wh = 10 + torch.rand((nb, nk, 2), generator=gen, device=dev) * 150
+        iou = box_iou_matrix(torch.cat([xy, xy + wh], -1))
+        ties = torch.randint(0, nk, (2, 4 * nk), generator=gen, device=dev)
+        iou[0, ties[0], ties[1]] = 0.45          # exactly at the threshold
+        iou[1, 5] = iou[1, 4]                    # two tied candidates
+        valid = torch.rand((nb, nk), generator=gen, device=dev) > 0.2
+        reset_counts(counters)
+        got = suppress.nms_suppress(iou, valid, 0.45)
+        torch.cuda.synchronize()
+        check(launch_counts(counters) == dict(none, nms_suppress=1),
+              f"nms K={nk}: launched {launch_counts(counters)}")
+        want = suppress.nms_suppress_reference(iou, valid, 0.45)
+        check(torch.equal(got, want), f"nms K={nk}: kernel differs from the "
+              f"plain version in {(got != want).sum().item()} slots")
+        ms = device_ms(lambda: suppress.nms_suppress(iou, valid, 0.45),
+                       reps=5)
+        found.append(f"K={nk}: {int(valid.sum())} valid, {int(want.sum())} "
+                     f"kept, kernel {ms:.4f} ms")
+        del iou, got, want
+    print(f"[18 nms wide] kernel == plain bit for bit at B={nb}, ties at the "
+          f"threshold 0.45 and a repeated row: " + "; ".join(found)
+          + " (device time per call, L2 flushed)", flush=True)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

@@ -42,13 +42,31 @@
 // this replaces (PERF.md): one did both phases in one block per
 // image, which left the mask to 32 SMs; one walked the kept boxes with
 // __ffs, a shared-memory load on the chain for each of them.
+//
+// Past K = 1,024 (up to 4,096, more than the TPU kernel's VMEM holds of
+// its (K, K) f32 IoU, about K = 2,000) the bitmask no longer fits shared
+// memory (K^2 / 8 bytes: 2 MB at K = 4,096), so a second pair of kernels
+// takes over and the first pair is left as it was:
+// - mask_kernel_wide walks a row's words 32 at a time, the loads of each
+//   32 issued before any is compared;
+// - sweep_kernel_wide copies only the diagonal blocks (word w of rows
+//   32w .. 32w + 31, 16 KB at K = 4,096) into shared memory, which is all
+//   the in-word resolution reads; each lane holds ceil(W / 32) words of
+//   the removed set, and the rows of a word's kept candidates are read
+//   from device memory (L2) once the word is resolved: all 32 rows'
+//   words, masked by the alive bits, so that every load of the word is
+//   issued before any is ORed and the chain pays one L2 round trip a
+//   word.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxK = 1024;
+constexpr int kMaxK = 1024;          // the sweep with the mask in shared memory
 constexpr int kMaxWords = kMaxK / 32;
+constexpr int kMaxWideK = 4096;      // the sweep that reads rows from L2
+constexpr int kMaxWideWords = kMaxWideK / 32;
+constexpr int kSlots = kMaxWideWords / 32;   // removed-set words a lane
 constexpr int kRowsPerBlock = 8;      // mask_kernel: a warp per row
 constexpr int kSweepThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
@@ -138,19 +156,133 @@ sweep_kernel(const unsigned* __restrict__ mask,
     keep[b * K + j] = (s_removed[j >> 5] >> (j & 31) & 1u) ? 0.0f : vb[j];
 }
 
+// K > kMaxK: the words of row i in chunks of 32, one ballot a word
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+mask_kernel_wide(const float* __restrict__ iou,
+                 const float* __restrict__ valid, unsigned* __restrict__ mask,
+                 int K, int W, float thr) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const long long b = blockIdx.y;
+  if (i >= K) return;                      // warp-uniform
+  const float* row = iou + (b * K + i) * K;
+  unsigned* out = mask + (b * K + i) * W;
+  const bool acts = valid[b * K + i] > 0.0f;   // else no bits
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    float x[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int w = w0 + u;
+      x[u] = acts && w < W && w >= (i >> 5)
+                 ? __ldg(row + min(32 * w + lane, K - 1))
+                 : 0.0f;
+    }
+    unsigned word = 0u;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int w = w0 + u;
+      if (w >= W) break;                   // warp-uniform
+      const int j = 32 * w + lane;
+      const unsigned bits = __ballot_sync(
+          kFull, acts && w >= (i >> 5) && j > i && j < K && x[u] > thr);
+      if (lane == u) word = bits;
+    }
+    if (w0 + lane < W) out[w0 + lane] = word;
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_kernel_wide(const unsigned* __restrict__ mask,
+                  const float* __restrict__ valid, float* __restrict__ keep,
+                  int K, int W) {
+  __shared__ unsigned s_diag[kMaxWideWords * 32];   // [w][lane]
+  __shared__ unsigned s_valid[kMaxWideWords];
+  __shared__ unsigned s_removed[kMaxWideWords];
+  const int lane = threadIdx.x & 31;
+  const long long b = blockIdx.x;
+  const float* vb = valid + b * K;
+  const unsigned* mb = mask + b * K * W;
+  for (int e = threadIdx.x; e < 32 * W; e += kSweepThreads) {
+    const int w = e >> 5, r = 32 * w + (e & 31);
+    s_diag[e] = r < K ? mb[(long long)r * W + w] : 0u;
+  }
+  for (int w = threadIdx.x >> 5; w < W; w += kSweepThreads / 32) {
+    const int j = 32 * w + lane;
+    const unsigned bits = __ballot_sync(kFull, j < K && vb[j] > 0.0f);
+    if (lane == 0) s_valid[w] = bits;
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    unsigned removed[kSlots] = {}, my_valid[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      my_valid[s] = 32 * s + lane < W ? s_valid[32 * s + lane] : 0u;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      for (int u = 0; u < 32; ++u) {
+        const int w = 32 * s + u;
+        if (w >= W) break;                 // warp-uniform
+        // as sweep_kernel: word w's alive bits resolved in order
+        const unsigned diag = s_diag[32 * w + lane];
+        unsigned alive = __shfl_sync(kFull, my_valid[s] & ~removed[s], u);
+#pragma unroll
+        for (int bit = 0; bit < 32; ++bit) {
+          const unsigned r = __shfl_sync(kFull, diag, bit);
+          if (alive >> bit & 1u) alive &= ~r;
+        }
+        // the kept candidates' rows, from word w on (the words before it
+        // are 0): every row of the word is loaded, at clamped addresses,
+        // and masked by its alive bit, so that no load waits on a branch
+        // and all of them are in flight before the first OR
+        const unsigned* rows = mb + (long long)(32 * w) * W;
+        const int last = min(31, K - 1 - 32 * w);
+#pragma unroll
+        for (int s2 = s; s2 < kSlots; ++s2) {
+          const int w2 = min(32 * s2 + lane, W - 1);
+          unsigned acc = 0u;
+#pragma unroll
+          for (int bit = 0; bit < 32; ++bit)
+            acc |= __ldg(rows + (long long)min(bit, last) * W + w2) &
+                   (0u - (alive >> bit & 1u));
+          removed[s2] |= 32 * s2 + lane < W ? acc : 0u;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      if (32 * s + lane < W) s_removed[32 * s + lane] = removed[s];
+  }
+  __syncthreads();
+
+  for (int j = threadIdx.x; j < K; j += kSweepThreads)
+    keep[b * K + j] = (s_removed[j >> 5] >> (j & 31) & 1u) ? 0.0f : vb[j];
+}
+
 }  // namespace
 
 // iou (B, K, K), valid (B, K), keep (B, K): f32, contiguous,
-// 1 <= K <= 1024; mask: B * K * ceil(K / 32) words of scratch. Returns
+// 1 <= K <= 4096; mask: B * K * ceil(K / 32) words of scratch. Returns
 // the first non-zero cudaError_t of the two launches.
 extern "C" int pautdx_nms_suppress(const void* iou, const void* valid,
                                    void* keep, void* mask, int B, int K,
                                    float thr, void* stream) {
   if (B == 0) return cudaSuccess;
-  if (B < 0 || K < 1 || K > kMaxK) return cudaErrorInvalidValue;
+  if (B < 0 || K < 1 || K > kMaxWideK) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int W = (K + 31) / 32;
   const dim3 grid((K + kRowsPerBlock - 1) / kRowsPerBlock, B);
+  if (K > kMaxK) {
+    mask_kernel_wide<<<grid, kRowsPerBlock * 32, 0, s>>>(
+        static_cast<const float*>(iou), static_cast<const float*>(valid),
+        static_cast<unsigned*>(mask), K, W, thr);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    sweep_kernel_wide<<<B, kSweepThreads, 0, s>>>(
+        static_cast<const unsigned*>(mask), static_cast<const float*>(valid),
+        static_cast<float*>(keep), K, W);
+    return cudaGetLastError();
+  }
   mask_kernel<<<grid, kRowsPerBlock * 32, 0, s>>>(
       static_cast<const float*>(iou), static_cast<const float*>(valid),
       static_cast<unsigned*>(mask), K, W, thr);

@@ -2,13 +2,13 @@
 its plain PyTorch version and its launch counter.
 
 Counterpart of ``pautdx/ops/pallas_attention.py``. bf16 runs on the
-tensor cores (``mma.sync``), f32 on the CUDA cores; the dtype alone picks
-the path. The kernel takes head dims 16, 32 and 64 (``HEAD_DIMS``). On a
-CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise. ``LAUNCHES`` counts kernel launches and
-nothing else. The kernel serves inference and has no
-backward: the wrappers refuse inputs that need a gradient while grad mode
-is on, whatever the device.
+tensor cores (``mma.sync``), f32 on them too, each product taken as three
+TF32 products (3xTF32); the dtype alone picks the path. The kernel takes
+any head dim from 1 to ``MAX_HEAD_DIM``. On a CPU tensor the wrappers run
+the plain version; on a CUDA tensor they launch the kernel or raise.
+``LAUNCHES`` counts kernel launches and nothing else. The kernel serves
+inference and has no backward: the wrappers refuse inputs that need a
+gradient while grad mode is on, whatever the device.
 """
 
 from __future__ import annotations
@@ -22,9 +22,10 @@ from pautdx_torch.ops import _build
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's instantiations: dfine_nano's AIFI layer has 16 (128
-# channels, 8 heads), DFineConfig()'s 32 (256, 8); 64 is the next power
-HEAD_DIMS = (16, 32, 64)
+# the port's ceiling (the TPU kernel takes any head dim): the kernel pads
+# dh up to 16, 32, 64, 128 or 256; dfine_nano's AIFI layer has 16 (128
+# channels, 8 heads), DFineConfig()'s 32 (256, 8)
+MAX_HEAD_DIM = 256
 # q, k, v, o, dtype, B, H, N, dh, batch/head/token strides, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
@@ -72,15 +73,15 @@ def _launch(q, k, v, B: int, H: int, N: int, dh: int,
     global LAUNCHES
     if q.device.type != "cuda":
         raise RuntimeError(f"attention: no kernel for device {q.device}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {dh}; the kernel is built "
-                         f"for {HEAD_DIMS}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"attention: head dim {dh}; the kernel takes 1 to "
+                         f"{MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention: q/k/v must be contiguous")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("attention: bf16 q/k/v must start on a 16-byte "
-                         "boundary (the kernel copies 16-byte row halves)")
+                         "boundary (the kernel copies 16-byte row pieces)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

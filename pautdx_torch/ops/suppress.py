@@ -5,7 +5,9 @@ Counterpart of ``pautdx/ops/pallas_nms.py::nms_suppress``, batched: the
 JAX package sweeps one image per call, this sweeps (B, K, K) at once, as a
 bitmask: the suppression words of every row are built in parallel, then
 one warp per image walks the kept boxes (two CUDA launches, counted as
-one). On a CPU tensor the wrapper runs the plain version; on a CUDA
+one). Up to K = 1,024 the sweep holds the image's bitmask in shared
+memory; past that, up to ``MAX_K``, it reads the kept rows from L2. On a
+CPU tensor the wrapper runs the plain version; on a CUDA
 tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches and nothing else.
 """
@@ -19,9 +21,10 @@ import torch
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
-# the sweep warp's 32 lanes x 32-bit words; the TPU kernel's (K, K) f32
-# IoU must fit its scoped VMEM, about K <= 1,400-2,000
-MAX_K = 1024
+# the sweep warp's 32 lanes x 4 words of the removed set: more than the TPU
+# kernel takes, whose (K, K) f32 IoU must fit its scoped VMEM (about K <=
+# 1,400-2,000)
+MAX_K = 4096
 
 # iou, valid, keep, mask scratch, B, K, thr, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -49,7 +52,7 @@ def nms_suppress(iou: torch.Tensor, valid: torch.Tensor,
                  iou_threshold: float = 0.45) -> torch.Tensor:
     """The greedy sweep over a batch: iou (B, K, K) of any float dtype and
     valid (B, K) of any dtype, both cast to f32 as the TPU kernel casts
-    them -> keep (B, K) f32. The kernel takes K <= 1024."""
+    them -> keep (B, K) f32. The kernel takes K <= ``MAX_K``."""
     global LAUNCHES
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2] or \
             tuple(valid.shape) != tuple(iou.shape[:2]):

@@ -109,13 +109,18 @@ def test_attention_kernel_matches_plain(cuda, dtype, N, scale):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", [1, 8, 24, 32, 37, 48, 64, 80, 100, 128,
+                                200, 256])
 @pytest.mark.parametrize("N", [400, 37, 600])
 def test_attention_kernel_matches_plain_at_head_dims(cuda, dtype, dh, N):
-    """Head dims 32 (DFineConfig()'s AIFI layer) and 64, at the gates of
-    the dh-16 test: 1e-5 in f32, 2e-2 in bf16. (32, 8, 400, 32) is the
-    HF-architecture eval path's shape; N=37 is ragged in queries and keys,
-    600 keys take two shared-memory chunks."""
+    """Every head dim the kernel takes, at the gates of the dh-16 test:
+    1e-5 in f32, 2e-2 in bf16. 32 is DFineConfig()'s AIFI layer, and
+    (32, 8, 400, 32) the HF-architecture eval path's shape; 32, 64, 128
+    and 256 are instantiations, the others zero-padded up to one; past 64
+    the columns of v and o split across blocks (80, 100, 200); 1, 37 and
+    (in bf16) 100 leave the rows off 16-byte pieces, staged element by
+    element. N=37 is ragged in queries and keys; 600 keys take two or more
+    shared-memory chunks."""
     dt = getattr(torch, dtype)
     B = 32 if N == 400 else 3
     q, k, v = (_randn((B, 8, N, dh), s, cuda, dt) for s in range(3))
@@ -138,11 +143,11 @@ def test_attention_kernel_matches_plain_at_head_dims(cuda, dtype, dh, N):
 
 
 def test_attention_kernel_refuses_what_it_cannot_take(cuda):
-    """Head dims outside 16, 32 and 64 (24, 128), non-contiguous inputs
+    """A head dim past the port's ceiling of 256, non-contiguous inputs
     and bf16 off 16-byte alignment raise, and nothing is launched."""
     before = attention.LAUNCHES
-    for dh in (24, 128):
-        q = _randn((2, 4, 8, dh), 0, cuda, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((2, 4, 8, 257), 0, cuda, dtype)
         with pytest.raises(ValueError, match="head dim"):
             attention.fused_attention(q, q, q)
     assert attention.LAUNCHES == before
@@ -218,11 +223,13 @@ def _nms_equal(iou, valid, thr=0.45):
 
 
 @pytest.mark.parametrize("B,K", [(32, 300), (3, 77), (2, 1024), (2, 1),
-                                 (2, 63), (2, 64), (2, 65)])
+                                 (2, 63), (2, 64), (2, 65), (2, 1025),
+                                 (2, 2048), (2, 4096)])
 def test_nms_kernel_matches_plain(cuda, B, K):
     """Bit for bit: the sweep only compares IoU values. K off a multiple
     of 32 or 64 leaves a ragged last word of the bitmask; 1024 is the
-    largest K."""
+    largest K whose bitmask the sweep holds in shared memory, 1025-4096
+    take the sweep that reads the kept rows from L2 (4096 the largest)."""
     iou, valid = _nms_inputs(B, K, K, cuda)
     want = _nms_equal(iou, valid)
     if K > 1:
@@ -265,12 +272,12 @@ def test_nms_kernel_takes_any_float_iou(cuda, dtype):
 
 
 def test_nms_kernel_refuses_what_it_cannot_take(cuda):
-    """K past 1024 (an open envelope gap: the TPU kernel's (K, K) f32 IoU
-    fits its VMEM to about K = 1,400-2,000), an integer IoU and a
+    """K past 4096 (beyond the TPU kernel's own ceiling: its (K, K) f32
+    IoU fits its VMEM to about K = 1,400-2,000), an integer IoU and a
     non-contiguous one raise, and nothing is launched."""
     before = suppress.LAUNCHES
-    iou, valid = _nms_inputs(1, 1025, 0, cuda)
-    with pytest.raises(ValueError, match="at most 1024"):
+    iou, valid = _nms_inputs(1, 4097, 0, cuda)
+    with pytest.raises(ValueError, match="at most 4096"):
         suppress.nms_suppress(iou, valid)
     iou, valid = _nms_inputs(2, 8, 0, cuda)
     with pytest.raises(TypeError, match="float"):

@@ -27,21 +27,25 @@ def _qkv(shape, seed):
 # ---------------------------------------------------------------- attention
 
 
-def test_fused_attention_reference_matches_pallas():
-    """(2, 8, 400, dh) f32, the AIFI head layout at 640px, at every head dim
-    the kernel takes (16: dfine_nano, 32: DFineConfig(), 64): atol/rtol
-    1e-5, the gate of tests/test_pallas_ops.py (both sum in f32)."""
-    for dh in attention.HEAD_DIMS:
-        q, k, v = _qkv((2, 8, 400, dh), dh)
-        q *= dh ** -0.5
-        want = j_fused_attention(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), interpret=True)
-        before = attention.LAUNCHES
-        got = attention.fused_attention(*map(torch.from_numpy, (q, k, v)))
-        assert attention.LAUNCHES == before  # the CPU path launches nothing
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                                   atol=1e-5)
-    assert attention.HEAD_DIMS == (16, 32, 64)
+@pytest.mark.parametrize("shape", [
+    (2, 8, 400, 16), (2, 8, 400, 32), (2, 8, 400, 64),
+    *((1, 2, 37, dh) for dh in (1, 8, 24, 48, 128, 256))])
+def test_fused_attention_reference_matches_pallas(shape):
+    """f32 at atol/rtol 1e-5, the gate of tests/test_pallas_ops.py (both sum
+    in f32): (2, 8, 400, dh) is the AIFI head layout at 640px (dh 16:
+    dfine_nano, 32: DFineConfig(), 64), and (1, 2, 37, dh) spans the head
+    dims the kernel takes on the card, 1 to attention.MAX_HEAD_DIM (256)."""
+    dh = shape[-1]
+    q, k, v = _qkv(shape, dh)
+    q *= dh ** -0.5
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k),
+                             jnp.asarray(v), interpret=True)
+    before = attention.LAUNCHES
+    got = attention.fused_attention(*map(torch.from_numpy, (q, k, v)))
+    assert attention.LAUNCHES == before  # the CPU path launches nothing
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert dh <= attention.MAX_HEAD_DIM == 256
 
 
 def test_aifi_attention_matches_pallas():
