@@ -1,8 +1,9 @@
 """Smoke run of pautdx_torch on one NVIDIA card: builds the CUDA kernels,
 holds each against its plain PyTorch version, then drives the D-FINE-nano
 640px serving path (the configuration of the root ``bench.py``), the
-YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step and
-the HF-architecture D-FINE 640px predict path through their entry points.
+YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step, the
+HF-architecture D-FINE 640px predict path and D-FINE-nano training from
+PAUT volumes through their entry points.
 
     python3 chip_smoke.py
 
@@ -108,7 +109,30 @@ Phases, one line each, in order; any failure exits non-zero:
     it (head dim 32), with SDPA at the same shape as its library call;
 18. NMS sweep kernel vs plain past the shared-memory bitmask, at K = 1025,
     1500, 2048 and 4096 candidates (B = 4), ties at the threshold and
-    invalid slots included: bit for bit.
+    invalid slots included: bit for bit;
+19. training from PAUT volumes: the accuracy harness's volumes of seeds
+    100-103, two written as JSON and two as txt trees, parsed, rendered
+    to 640px frames on the card and through the same function on the CPU
+    (images within 1e-5, boxes, classes and masks equal), frames rendered
+    per second; ``train.detector.train_bscan_detector`` over them for one
+    epoch at b16 with an EMA of 0.999: every loss finite, the weighted
+    gather launched 3 times forward and 3 times backward a step, the EMA
+    within 1e-6 of d*ema + (1-d)*params after the last step, the
+    checkpoint restores it, median ms/step; then the EMA's mAP@0.5 on 64
+    of the frames in the accuracy harness's arms (f32 and bf16, bilinear
+    and discrete, and the serving configuration over uint8 wire slabs),
+    each in [0, 1];
+20. phase 12's step (b4, 640px, f32, both decoders) with a contrastive
+    denoising group of M = 8 and 100 denoising queries (D = 192, so 342
+    decoder queries and 2,736 taps a frame), criterion plus
+    ``denoising_loss``, through the kernels and through the plain versions
+    from the same weights, batch and draws, at phase 12's gates, the
+    bilinear step too at the discrete step's (one backbone leaf's f32
+    gradient is at the noise floor there: reversing the plain step's tap
+    order moves it by more than 1e-3); the
+    records of the weighted gather, its backward, the one-hot gather and
+    its backward at the inputs these steps gave them, each with its bound
+    and library call, as phase 13's.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -171,6 +195,7 @@ FLUSH_BYTES = 128 * 2**20
 # (80, 100, 200), and off 16-byte alignment (1, 37, 100 in bf16)
 HEAD_DIMS = (1, 8, 16, 24, 32, 37, 48, 64, 80, 100, 128, 200, 256)
 WIDE_NMS_K = (1025, 1500, 2048, 4096)
+VOLUME_SEEDS = range(100, 104)  # phase 19: the accuracy harness's first four
 
 
 def fail(msg: str) -> None:
@@ -401,8 +426,45 @@ def attention_record(torch, name: str, q, k, v, heads: int, launches: int,
               f"clocks.max.sm)")
 
 
+def onehot_record(torch, dev, flat, idx, launches: int, name: str) -> dict:
+    """The record of the one-hot gather at inputs a run gave it, after
+    checking it against its plain version bit for bit; the bound is the
+    bytes of the output, the indices and the distinct rows read, the
+    library call ``flat[b_idx, idx]``."""
+    from pautdx_torch.ops import gather
+
+    got = gather.onehot_gather(flat, idx)
+    want = gather.onehot_gather_reference(flat, idx)
+    check(torch.equal(got, want), f"{name}: the one-hot gather differs from "
+          f"its plain version")
+    Bf, Lf, C = flat.shape
+    rows = torch.unique(idx.long().clamp(0, Lf - 1)
+                        + Lf * torch.arange(Bf, device=dev)[:, None]).numel()
+    nbytes = (got.numel() * got.element_size() + idx.numel() * 4
+              + rows * C * flat.element_size())
+    b_idx = torch.arange(Bf, device=dev)[:, None].expand_as(idx)
+    idx_long = idx.long()
+    return dict(
+        name=name, route="cuda",
+        source="pautdx_torch/csrc/onehot_gather.cu",
+        replaces="pautdx/ops/pallas_gather.py:36",
+        launches=launches, max_abs_err=max_abs_err(got, want),
+        **kernel_times(lambda: gather.onehot_gather(flat, idx),
+                       lambda: gather.onehot_gather_reference(flat, idx),
+                       lambda: flat[b_idx, idx_long]),
+        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        shape=f"flat {tuple(flat.shape)} {str(flat.dtype).split('.')[1]}, "
+              f"idx {tuple(idx.shape)}, {rows} distinct rows, {nbytes} "
+              f"bytes")
+
+
 def max_abs_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def within(got, want) -> float:
+    """max |got - want| over the largest |want|; checked <= 1e-5."""
+    return max_abs_err(got, want) / want.abs().max().item()
 
 
 def matched_costs(cost: np.ndarray) -> np.ndarray:
@@ -490,6 +552,47 @@ def first_inputs(wrappers: dict, captured: dict):
     return swapped(wrappers, make)
 
 
+@contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms for a while, so
+    that a plain training step gives the same gradients bit for bit at
+    every run (the kernels' shared-memory atomics still add in an order
+    that varies). cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` from its first
+    call on, which :func:`main` sets."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+
+
+def onehot_reordered(gather) -> dict:
+    """The discrete step's reordering: the plain one-hot gather over the
+    taps in reverse order, so its backward's sums run reversed."""
+    return {"the one-hot taps reversed": {
+        "onehot_gather": lambda flat, idx: gather.onehot_gather_reference(
+            flat, idx.flip(1)).flip(1)}}
+
+
+def weighted_reorderings(gather) -> dict:
+    """The bilinear step's reorderings: the plain weighted gather with
+    its taps, its four corners, or both in reverse order."""
+    ref = gather.weighted_gather_reference
+    return {
+        "the taps reversed": {"weighted_gather": lambda flat, idx, w: ref(
+            flat, idx.flip(1), w.flip(1)).flip(1)},
+        "the corners reversed": {"weighted_gather": lambda flat, idx, w: ref(
+            flat, idx.flip(2), w.flip(2))},
+        "both reversed": {"weighted_gather": lambda flat, idx, w: ref(
+            flat, idx.flip(1, 2), w.flip(1, 2)).flip(1)}}
+
+
 def set_tf32(on: bool) -> None:
     """The process-wide TF32 switches of cuDNN convolutions and of GEMMs."""
     import torch
@@ -542,12 +645,256 @@ def global_grad_error(got: dict, want: dict) -> float:
     return (num / den) ** 0.5
 
 
+def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
+               batch: dict, size: int):
+    """Phase 12's check of one training step, for phases 12 and 20:
+    ``kernels_vs_plain(cfg, want_counts, reorderings=None,
+    denoising=None, captured=None, phase="12")`` runs one step of ``cfg``
+    on ``batch`` through the kernels and one through the plain versions
+    from the same weights (and the same denoising group, if given), under
+    :func:`deterministic`, applies phase 12's gates, prints them and
+    returns the model; ``captured`` keeps the kernel step's first inputs
+    of each wrapper."""
+    from pautdx_torch.models.vision.dfine import DFine
+    from pautdx_torch.ops import gather
+    from pautdx_torch.train.detector import dfine_objective
+
+    def model_step(model, objective, start, denoising=None) -> tuple:
+        """The loss and the gradients of one step from ``start``, through
+        whatever the wrappers are now."""
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        if denoising is None:
+            out = model(batch["images"], train=True)
+        else:
+            out = model(batch["images"], train=True, denoising=denoising)
+            out = {**out, "denoising": denoising}
+        loss, _ = objective(out, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {
+            n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for n, p in model.named_parameters()}
+
+    def one_step(model, objective, start, plain: bool, denoising,
+                 captured):
+        reset_counts(counters)
+        with (plain_kernels(wrappers) if plain
+              else first_inputs(wrappers, captured) if captured is not None
+              else nullcontext()):
+            loss, grads = model_step(model, objective, start, denoising)
+        return (loss, grads,
+                {k: v.clone() for k, v in model.named_buffers()},
+                launch_counts(counters))
+
+    def kernels_vs_plain(cfg, want_counts: dict, reorderings=None,
+                         denoising=None, captured=None, phase="12"):
+        """One step of ``cfg`` through the kernels and one through the
+        plain versions: the checks of phase 12 and what they read. With
+        ``reorderings`` ({what: wrappers to the plain versions summing in
+        another order}), one more plain step for each measures how far
+        the plain step's own gradients move when only the order of a sum
+        changes, leaf by leaf; a leaf may then differ by twice the most
+        of these moves, the 1e-3 holding for the gradient as a whole and
+        as the floor of every leaf; one more kernel step prints how far
+        the kernels' own order moves them from run to run."""
+        model = DFine(cfg, device=dev, seed=0)
+        objective = dfine_objective(size, cfg)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        with deterministic():
+            return checked_step(model, objective, start, cfg, want_counts,
+                                reorderings, denoising, captured, phase)
+
+    def checked_step(model, objective, start, cfg, want_counts,
+                     reorderings, denoising, captured, phase):
+        loss_k, grads_k, bufs_k, counts_k = one_step(
+            model, objective, start, False, denoising, captured)
+        loss_p, grads_p, bufs_p, counts_p = one_step(
+            model, objective, start, True, denoising, None)
+        what = f"decoder_method={cfg.decoder_method!r}"
+        if denoising is not None:
+            what += (f" with {denoising['class_ids'].shape[1]} denoising "
+                     f"queries")
+        check(counts_k == dict(none, **want_counts),
+              f"{what}: one training step launched {counts_k}, want "
+              f"{want_counts}")
+        check(counts_p == none, f"{what}: the plain step launched {counts_p}")
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        check(loss_err <= TRAIN_LOSS_TOL, f"{what}: train loss kernels "
+              f"{loss_k} vs plain {loss_p}")
+        grad_err, grad_leaf, noise, floor = relative_grad_errors(grads_k,
+                                                                 grads_p)
+        check(noise <= floor, f"{what}: noise leaves {noise:.3g} (floor "
+              f"{floor:.3g})")
+        if reorderings is None:
+            check(grad_err <= TRAIN_GRAD_TOL, f"{what}: gradients: worst "
+                  f"relative {grad_err:.3g} at {grad_leaf}")
+            grads_note = (f"worst gradient relative error {grad_err:.3g} "
+                          f"({grad_leaf}) <= {TRAIN_GRAD_TOL}")
+        else:
+            spread = {}
+            for reordered in reorderings.values():
+                with plain_kernels(wrappers), swapped(
+                        dict.fromkeys(reordered, gather),
+                        lambda name, mod, fn: reordered[name]):
+                    moved = leaf_errors(model_step(model, objective, start,
+                                                   denoising)[1], grads_p)
+                spread = {n: max(e, spread.get(n, 0.0))
+                          for n, e in moved.items()}
+            # the kernel step once more: how far its own sums' order moves
+            # it from run to run (printed, not gated)
+            rerun = leaf_errors(one_step(model, objective, start, False,
+                                         denoising, None)[1], grads_k)
+            errs = leaf_errors(grads_k, grads_p)
+            limit = {n: max(TRAIN_GRAD_TOL, 2 * spread[n]) for n in errs}
+            over = {n: (e, limit[n]) for n, e in errs.items()
+                    if e > limit[n]}
+            whole = global_grad_error(grads_k, grads_p)
+            check(not over and whole <= TRAIN_GRAD_TOL,
+                  f"{what}: gradients beyond their limits {over}, as a "
+                  f"whole {whole:.3g}")
+            top = max(spread, key=spread.get)
+            grads_note = (f"gradient relative error as a whole "
+                          f"{whole:.3g} <= {TRAIN_GRAD_TOL}; worst leaf "
+                          f"{grad_err:.3g} ({grad_leaf}, norm "
+                          f"{grads_p[grad_leaf].norm().item():.3g}), the "
+                          f"plain step itself moving up to "
+                          f"{spread[top]:.3g} ({top}) "
+                          f"with {' / '.join(reorderings)}; every leaf "
+                          f"within max({TRAIN_GRAD_TOL}, 2x that); the "
+                          f"kernel step run again moving up to "
+                          f"{max(rerun.values()):.3g} "
+                          f"({max(rerun, key=rerun.get)})")
+        bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
+        check(bn_err <= 1e-5, f"{what}: BN running statistics differ by "
+              f"{bn_err:.3g}")
+        print(f"[{phase} train model] {what}, 640px f32 batch 4, TF32 off: "
+              f"loss through the kernels {loss_k:.6f}, plain {loss_p:.6f} "
+              f"(relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
+              f"{grads_note}; noise-level leaves within {noise:.3g} "
+              f"(floor {floor:.3g}); BN statistics max |err| {bn_err:.3g}; "
+              f"launches per step {counts_k}", flush=True)
+        return model
+
+    return kernels_vs_plain
+
+
+def gather_records(torch, dev, captured: dict, dcaptured: dict,
+                   counts: dict, dcounts: dict, suffix: str = "") -> list:
+    """The records of the weighted gather, its backward and the one-hot
+    gather's backward at the inputs that training steps gave them
+    (``captured`` from a bilinear step, ``dcaptured`` from a discrete one,
+    each with its launch counts), each beside its plain version and its
+    library call; the names carry ``suffix``. Checks the kernels against
+    the plain versions at those inputs (relative to the largest
+    magnitude, ``GATHER_TOL``)."""
+    import torch.nn.functional as F
+
+    from pautdx_torch.ops import gather
+
+    flat, idx, w = (t.detach() for t in captured["weighted_gather"])
+    _, _, _, g = (t.detach() for t in captured["weighted_gather_backward"])
+    B, L, C = flat.shape
+    T, K = idx.shape[1:]
+    og, oidx, oL = dcaptured["onehot_gather_backward"]
+    og, oidx = og.detach(), oidx.detach()
+    with torch.no_grad():
+        got = gather.weighted_gather(flat, idx, w)
+        want = gather.weighted_gather_reference(flat, idx, w)
+        d_got = gather.weighted_gather_backward(flat, idx, w, g)
+        d_want = gather.weighted_gather_backward_reference(flat, idx, w, g)
+        o_got = gather.onehot_gather_backward(og, oidx, oL)
+        o_want = gather.onehot_gather_backward_reference(og, oidx, oL)
+    rel = (within(got, want), within(d_got[0], d_want[0]),
+           within(d_got[1], d_want[1]), within(o_got, o_want))
+    check(max(rel) <= GATHER_TOL, f"training-step gather{suffix} relative "
+          f"errors (out, d_flat, d_w, one-hot d_flat) {rel}")
+    fwd_err = max_abs_err(got, want)
+    bwd_err = max(max_abs_err(d_got[0], d_want[0]),
+                  max_abs_err(d_got[1], d_want[1]))
+    rows = torch.unique(idx.long().clamp(0, L - 1)
+                        + L * torch.arange(B, device=dev)[:, None, None])
+    table_bytes = rows.numel() * C * 4          # the rows the taps touch
+    tap_bytes = 2 * idx.numel() * 4             # idx and w
+    out_bytes = B * T * C * 4
+    # embedding_bag over fixed bags of K rows: the same function
+    table = flat.reshape(B * L, C)
+    bag_idx = (idx.long().clamp(0, L - 1) + L * torch.arange(
+        B, device=dev)[:, None, None]).reshape(B * T, K)
+    bag_w = w.reshape(B * T, K)
+
+    def bag(tab, wts):
+        return F.embedding_bag(bag_idx, tab, mode="sum",
+                               per_sample_weights=wts)
+
+    tab_r = table.clone().requires_grad_()
+    w_r = bag_w.clone().requires_grad_()
+    bag_out = bag(tab_r, w_r)
+    bag_g = g.reshape(B * T, C)
+    # F.embedding over the clipped rows of all frames: its backward is the
+    # one-hot gather's
+    Bo, To, Co = og.shape
+    o_rows = (oidx.long().clamp(0, oL - 1)
+              + oL * torch.arange(Bo, device=dev)[:, None])
+    emb_table = torch.zeros((Bo * oL, Co), device=dev, requires_grad=True)
+    emb_out = F.embedding(o_rows, emb_table)
+    records = []
+    for name, line, err, nbytes, flops, fn, plain, library, shape in (
+            ("weighted_gather", 134, fwd_err,
+             table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
+             lambda: gather.weighted_gather(flat, idx, w),
+             lambda: gather.weighted_gather_reference(flat, idx, w),
+             lambda: bag(table, bag_w),
+             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+             f"{rows.numel()} distinct rows of {B * L}; library: "
+             f"embedding_bag over bags of {K}"),
+            ("weighted_gather_backward", 196, bwd_err,
+             out_bytes + table_bytes + tap_bytes + B * L * C * 4
+             + idx.numel() * 4, 4 * K * C * B * T,
+             lambda: gather.weighted_gather_backward(flat, idx, w, g),
+             lambda: gather.weighted_gather_backward_reference(
+                 flat, idx, w, g),
+             lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
+                                         retain_graph=True),
+             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+             f"{rows.numel()} distinct rows of {B * L}; library: "
+             f"embedding_bag's backward to both inputs"),
+            ("onehot_gather_backward", 107,
+             max_abs_err(o_got, o_want),
+             og.numel() * 4 + Bo * oL * Co * 4 + oidx.numel() * 4,
+             Bo * To * Co,
+             lambda: gather.onehot_gather_backward(og, oidx, oL),
+             lambda: gather.onehot_gather_backward_reference(og, oidx, oL),
+             lambda: torch.autograd.grad(emb_out, emb_table, og,
+                                         retain_graph=True),
+             f"g {tuple(og.shape)} f32, idx {tuple(oidx.shape)}, L {oL}, "
+             f"{torch.unique(o_rows).numel()} distinct rows of {Bo * oL}; "
+             f"library: F.embedding's backward")):
+        parts = {}
+        with torch.no_grad() if name == "weighted_gather" else nullcontext():
+            t_ms = device_ms(fn, parts=parts)
+            p_ms, l_ms = device_ms(plain), device_ms(library)
+            call_ms = time_ms(fn)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = flops / PEAK_F32_FLOP_PER_S
+        records.append(dict(
+            name=name + suffix, route="cuda",
+            source="pautdx_torch/csrc/weighted_gather.cu",
+            replaces=f"pautdx/ops/pallas_gather.py:{line}",
+            launches=(dcounts if name.startswith("onehot")
+                      else counts)[name],
+            max_abs_err=err, ms=t_ms, parts=parts, plain_ms=p_ms,
+            call_ms=call_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=l_ms,
+            shape=f"{shape}; {nbytes} bytes, {flops} FLOP"))
+    return records
+
+
 def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
                  none: dict) -> list:
     """Phases 11-13, the D-FINE-nano training step; returns the records of
     the two weighted gather kernels."""
-    import torch.nn.functional as F
-
     from pautdx_torch.models.vision.dfine import DFine, dfine_nano
     from pautdx_torch.ops import gather
     from pautdx_torch.train.checkpoint import restore_dfine
@@ -569,10 +916,6 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
         w[:, ::7, 2] = 0.0               # a corner off the grid
         g = torch.randn((B, T, C), generator=gen, device=dev)
         return flat, idx, w, g
-
-    def within(got, want) -> float:
-        """max |got - want| over the largest |want|; checked <= 1e-5."""
-        return max_abs_err(got, want) / want.abs().max().item()
 
     worst = {}
     for B, L, C, T, pile_up in ((16, 2000, 128, 1200, False),
@@ -639,101 +982,14 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
     size = 640
     batch = {k: torch.as_tensor(v).to(dev)
              for k, v in make_train_batches(1, 4, size, seed=5)[0].items()}
-
-    def model_step(model, objective, start) -> tuple:
-        """The loss and the gradients of one step from ``start``, through
-        whatever the wrappers are now."""
-        model.load_state_dict(start)
-        model.zero_grad(set_to_none=True)
-        out = model(batch["images"], train=True)
-        loss, _ = objective(out, batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        return loss.item(), {
-            n: (p.grad if p.grad is not None else torch.zeros_like(p))
-            for n, p in model.named_parameters()}
-
-    def one_step(model, objective, start, plain: bool):
-        reset_counts(counters)
-        with plain_kernels(wrappers) if plain else nullcontext():
-            loss, grads = model_step(model, objective, start)
-        return (loss, grads,
-                {k: v.clone() for k, v in model.named_buffers()},
-                launch_counts(counters))
-
-    def kernels_vs_plain(cfg, want_counts: dict, reordered=None):
-        """One step of ``cfg`` through the kernels and one through the
-        plain versions: the checks of phase 12 and what they read. With
-        ``reordered`` (wrappers to the plain versions summing in another
-        order), a third step measures how far the plain step's own
-        gradients move when only the order of a sum changes, leaf by
-        leaf; a leaf may then differ by twice that, the 1e-3 holding for
-        the gradient as a whole and as the floor of every leaf."""
-        model = DFine(cfg, device=dev, seed=0)
-        objective = dfine_objective(size, cfg)
-        start = {k: v.clone() for k, v in model.state_dict().items()}
-        loss_k, grads_k, bufs_k, counts_k = one_step(model, objective, start,
-                                                     False)
-        loss_p, grads_p, bufs_p, counts_p = one_step(model, objective, start,
-                                                     True)
-        what = f"decoder_method={cfg.decoder_method!r}"
-        check(counts_k == dict(none, **want_counts),
-              f"{what}: one training step launched {counts_k}, want "
-              f"{want_counts}")
-        check(counts_p == none, f"{what}: the plain step launched {counts_p}")
-        loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        check(loss_err <= TRAIN_LOSS_TOL, f"{what}: train loss kernels "
-              f"{loss_k} vs plain {loss_p}")
-        grad_err, grad_leaf, noise, floor = relative_grad_errors(grads_k,
-                                                                 grads_p)
-        check(noise <= floor, f"{what}: noise leaves {noise:.3g} (floor "
-              f"{floor:.3g})")
-        if reordered is None:
-            check(grad_err <= TRAIN_GRAD_TOL, f"{what}: gradients: worst "
-                  f"relative {grad_err:.3g} at {grad_leaf}")
-            grads_note = (f"worst gradient relative error {grad_err:.3g} "
-                          f"({grad_leaf}) <= {TRAIN_GRAD_TOL}")
-        else:
-            with plain_kernels(wrappers), swapped(
-                    dict.fromkeys(reordered, gather),
-                    lambda name, mod, fn: reordered[name]):
-                spread = leaf_errors(model_step(model, objective, start)[1],
-                                     grads_p)
-            errs = leaf_errors(grads_k, grads_p)
-            limit = {n: max(TRAIN_GRAD_TOL, 2 * spread[n]) for n in errs}
-            over = {n: (e, limit[n]) for n, e in errs.items()
-                    if e > limit[n]}
-            whole = global_grad_error(grads_k, grads_p)
-            check(not over and whole <= TRAIN_GRAD_TOL,
-                  f"{what}: gradients beyond their limits {over}, as a "
-                  f"whole {whole:.3g}")
-            top = max(spread, key=spread.get)
-            grads_note = (f"gradient relative error as a whole "
-                          f"{whole:.3g} <= {TRAIN_GRAD_TOL}; worst leaf "
-                          f"{grad_err:.3g} ({grad_leaf}), the plain step "
-                          f"itself moving up to {spread[top]:.3g} ({top}) "
-                          f"when its one-hot sums run in reverse tap "
-                          f"order; every leaf within max({TRAIN_GRAD_TOL}, "
-                          f"2x that)")
-        bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
-        check(bn_err <= 1e-5, f"{what}: BN running statistics differ by "
-              f"{bn_err:.3g}")
-        print(f"[12 train model] {what}, 640px f32 batch 4, TF32 off: loss "
-              f"through the kernels {loss_k:.6f}, plain {loss_p:.6f} "
-              f"(relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
-              f"{grads_note}; noise-level leaves within {noise:.3g} "
-              f"(floor {floor:.3g}); BN statistics max |err| {bn_err:.3g}; "
-              f"launches per step {counts_k}", flush=True)
-        return model
-
+    kernels_vs_plain = step_check(torch, dev, counters, wrappers, none,
+                                  batch, size)
     cfg = dfine_nano(num_labels=2)
     model = kernels_vs_plain(cfg, dict(weighted_gather=3,
                                        weighted_gather_backward=3))
     kernels_vs_plain(dataclasses.replace(cfg, decoder_method="discrete"),
                      dict(onehot_gather=3, onehot_gather_backward=3),
-                     reordered={"onehot_gather": lambda flat, idx: gather.
-                                onehot_gather_reference(
-                                    flat, idx.flip(1)).flip(1)})
+                     reorderings=onehot_reordered(gather))
     objective = dfine_objective(size, cfg)
     # checkpoint round trip through the trainer's state
     ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
@@ -860,102 +1116,8 @@ def train_phases(torch, dev, gen, counters: dict, wrappers: dict,
     del dtrainer, dstate
 
     # the gather kernels at the inputs the training steps gave them
-    flat, idx, w = (t.detach() for t in captured["weighted_gather"])
-    _, _, _, g = (t.detach() for t in captured["weighted_gather_backward"])
-    B, L, C = flat.shape
-    T, K = idx.shape[1:]
-    og, oidx, oL = dcaptured["onehot_gather_backward"]
-    og, oidx = og.detach(), oidx.detach()
-    with torch.no_grad():
-        got = gather.weighted_gather(flat, idx, w)
-        want = gather.weighted_gather_reference(flat, idx, w)
-        d_got = gather.weighted_gather_backward(flat, idx, w, g)
-        d_want = gather.weighted_gather_backward_reference(flat, idx, w, g)
-        o_got = gather.onehot_gather_backward(og, oidx, oL)
-        o_want = gather.onehot_gather_backward_reference(og, oidx, oL)
-    rel = (within(got, want), within(d_got[0], d_want[0]),
-           within(d_got[1], d_want[1]), within(o_got, o_want))
-    check(max(rel) <= GATHER_TOL, f"training-step gather relative errors "
-          f"(out, d_flat, d_w, one-hot d_flat) {rel}")
-    fwd_err = max_abs_err(got, want)
-    bwd_err = max(max_abs_err(d_got[0], d_want[0]),
-                  max_abs_err(d_got[1], d_want[1]))
-    rows = torch.unique(idx.long().clamp(0, L - 1)
-                        + L * torch.arange(B, device=dev)[:, None, None])
-    table_bytes = rows.numel() * C * 4          # the rows the taps touch
-    tap_bytes = 2 * idx.numel() * 4             # idx and w
-    out_bytes = B * T * C * 4
-    # embedding_bag over fixed bags of K rows: the same function
-    table = flat.reshape(B * L, C)
-    bag_idx = (idx.long().clamp(0, L - 1) + L * torch.arange(
-        B, device=dev)[:, None, None]).reshape(B * T, K)
-    bag_w = w.reshape(B * T, K)
-
-    def bag(tab, wts):
-        return F.embedding_bag(bag_idx, tab, mode="sum",
-                               per_sample_weights=wts)
-
-    tab_r = table.clone().requires_grad_()
-    w_r = bag_w.clone().requires_grad_()
-    bag_out = bag(tab_r, w_r)
-    bag_g = g.reshape(B * T, C)
-    # F.embedding over the clipped rows of all frames: its backward is the
-    # one-hot gather's
-    Bo, To, Co = og.shape
-    o_rows = (oidx.long().clamp(0, oL - 1)
-              + oL * torch.arange(Bo, device=dev)[:, None])
-    emb_table = torch.zeros((Bo * oL, Co), device=dev, requires_grad=True)
-    emb_out = F.embedding(o_rows, emb_table)
-    records = []
-    for name, line, err, nbytes, flops, fn, plain, library, shape in (
-            ("weighted_gather", 134, fwd_err,
-             table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
-             lambda: gather.weighted_gather(flat, idx, w),
-             lambda: gather.weighted_gather_reference(flat, idx, w),
-             lambda: bag(table, bag_w),
-             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-             f"{rows.numel()} distinct rows of {B * L}; library: "
-             f"embedding_bag over bags of {K}"),
-            ("weighted_gather_backward", 196, bwd_err,
-             out_bytes + table_bytes + tap_bytes + B * L * C * 4
-             + idx.numel() * 4, 4 * K * C * B * T,
-             lambda: gather.weighted_gather_backward(flat, idx, w, g),
-             lambda: gather.weighted_gather_backward_reference(
-                 flat, idx, w, g),
-             lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
-                                         retain_graph=True),
-             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-             f"{rows.numel()} distinct rows of {B * L}; library: "
-             f"embedding_bag's backward to both inputs"),
-            ("onehot_gather_backward", 107,
-             max_abs_err(o_got, o_want),
-             og.numel() * 4 + Bo * oL * Co * 4 + oidx.numel() * 4,
-             Bo * To * Co,
-             lambda: gather.onehot_gather_backward(og, oidx, oL),
-             lambda: gather.onehot_gather_backward_reference(og, oidx, oL),
-             lambda: torch.autograd.grad(emb_out, emb_table, og,
-                                         retain_graph=True),
-             f"g {tuple(og.shape)} f32, idx {tuple(oidx.shape)}, L {oL}, "
-             f"{torch.unique(o_rows).numel()} distinct rows of {Bo * oL}; "
-             f"library: F.embedding's backward")):
-        parts = {}
-        with torch.no_grad() if name == "weighted_gather" else nullcontext():
-            t_ms = device_ms(fn, parts=parts)
-            p_ms, l_ms = device_ms(plain), device_ms(library)
-            call_ms = time_ms(fn)
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = flops / PEAK_F32_FLOP_PER_S
-        records.append(dict(
-            name=name, route="cuda",
-            source="pautdx_torch/csrc/weighted_gather.cu",
-            replaces=f"pautdx/ops/pallas_gather.py:{line}",
-            launches=(dcounts if name.startswith("onehot")
-                      else run_counts)[name],
-            max_abs_err=err, ms=t_ms, parts=parts, plain_ms=p_ms,
-            call_ms=call_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=l_ms,
-            shape=f"{shape}; {nbytes} bytes, {flops} FLOP"))
+    records = gather_records(torch, dev, captured, dcaptured, run_counts,
+                             dcounts)
     for r in records:
         print_record("13", r, "per step")
     return records
@@ -1214,7 +1376,192 @@ def hf_phases(torch, dev, gen, counters: dict, wrappers: dict,
     return records
 
 
+def volume_phase(torch, dev, counters: dict, none: dict) -> None:
+    """Phase 19: four harness volumes written as JSON and as txt trees,
+    parsed, rendered on the card and on the CPU, trained on for one epoch
+    through ``train_bscan_detector`` with the EMA, and the EMA evaluated
+    in the accuracy harness's arms."""
+    from pautdx_torch.data import synthetic
+    from pautdx_torch.data.bscan import render_bscans
+    from pautdx_torch.data.vision import detection_frames_from_volume
+    from pautdx_torch.data.volume import parse_json_volume, parse_txt_tree
+    from pautdx_torch.eval import accuracy
+    from pautdx_torch.train.checkpoint import CheckpointManager
+    from pautdx_torch.train.detector import train_bscan_detector
+    from pautdx_torch.train.trainer import Trainer
+
+    root = os.path.join(HERE, "build", "chip_smoke_volumes")
+    data_dir, ckpt_dir = (os.path.join(root, d) for d in ("data", "ckpt"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(data_dir)
+    vols = []
+    for i, (spec, defects) in enumerate(accuracy.harness_volumes(
+            VOLUME_SEEDS, 1)):
+        if i < 2:
+            path = os.path.join(data_dir, f"vol{i}.json")
+            synthetic.write_json_volume(path, spec, defects)
+            vols.append(parse_json_volume(path))
+        else:
+            synthetic.write_txt_tree(data_dir, spec, defects,
+                                     file_folder=f"vol{i}")
+            vols.append(parse_txt_tree(data_dir, f"vol{i}"))
+    img_err, frames = 0.0, []
+    for vol in vols:
+        card, host = (detection_frames_from_volume(
+            vol, 640, 8, class_map=accuracy.CLASS_MAP, device=d)
+            for d in (dev, "cpu"))
+        img_err = max(img_err, float(np.abs(card.images
+                                            - host.images).max()))
+        check(all(np.array_equal(getattr(card, k), getattr(host, k))
+                  for k in ("boxes", "classes", "mask")),
+              "volume frames: the card's boxes, classes or masks differ "
+              "from the CPU's")
+        frames.append(card)
+    check(img_err <= 1e-5, f"volume frames: the card's render differs from "
+          f"the CPU's by {img_err:.3g}")
+    scans = [np.ascontiguousarray(np.swapaxes(v.beam_array(), 0, 1))
+             for v in vols]
+    n_frames = sum(x.shape[0] for x in scans)
+
+    def render_all():
+        for x in scans:
+            render_bscans(x, 640, 640, device=dev)
+        torch.cuda.synchronize()
+
+    render_all()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        render_all()
+    render_fps = 3 * n_frames / (time.perf_counter() - t0)
+
+    # one epoch, each step's EMA before it and parameters after it kept
+    decay, last, step_ms, rows = 0.999, {}, [], []
+    train_step = Trainer.train_step
+
+    def spy(self, state, batch, lr_scale=1.0):
+        last["ema"] = {k: v.clone() for k, v in state.ema.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = train_step(self, state, batch, lr_scale)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        last["params"] = {k: p.detach().clone()
+                          for k, p in self.model.named_parameters()}
+        rows.append(row)
+        return row
+
+    reset_counts(counters)
+    Trainer.train_step = spy
+    try:
+        trainer, state = train_bscan_detector(
+            data_dir, size=640, batch_size=TRAIN_BATCH, epochs=1,
+            out=ckpt_dir, ema_decay=decay, device=dev, log=lambda s: None)
+    finally:
+        Trainer.train_step = train_step
+    counts = launch_counts(counters)
+    n = len(rows)
+    check(n == n_frames // TRAIN_BATCH, f"{n} steps over {n_frames} frames")
+    check(counts == dict(none, weighted_gather=3 * n,
+                         weighted_gather_backward=3 * n),
+          f"{n} steps from volumes launched {counts}")
+    check(all(r["loss_was_finite"] * r["update_was_finite"] == 1.0
+              and np.isfinite(r["total"]) for r in rows),
+          f"non-finite steps from volumes: {[r['total'] for r in rows]}")
+    ema_err = max(max_abs_err(state.ema[k], decay * last["ema"][k]
+                              + (1 - decay) * p)
+                  for k, p in last["params"].items())
+    check(ema_err <= 1e-6, f"the EMA after the last step is off its "
+          f"closed form by {ema_err:.3g}")
+    saved, _ = CheckpointManager(ckpt_dir).restore("latest")
+    check(saved["ema_params"].keys() == state.ema.keys()
+          and all(torch.equal(v, state.ema[k].cpu())
+                  for k, v in saved["ema_params"].items()),
+          "the checkpoint does not restore the EMA")
+
+    # the EMA in the harness's arms, on the first 64 frames
+    data = {k: torch.from_numpy(np.concatenate(
+        [getattr(f, k) for f in frames])[:64]).to(dev)
+        for k in ("images", "boxes", "classes", "mask")}
+    reset_counts(counters)
+    maps = accuracy.evaluate_arms(state, data, 640)
+    eval_counts = {k: v for k, v in launch_counts(counters).items() if v}
+    check(all(0.0 <= m <= 1.0 for m in maps.values()),
+          f"mAP@0.5 out of [0, 1]: {maps}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[19 volumes] seeds {list(VOLUME_SEEDS)} as the accuracy harness "
+          f"draws them, 2 JSON + 2 txt trees, {n_frames} frames at 640px: "
+          f"rendered on the card and on the CPU, max |err| {img_err:.3g} <= "
+          f"1e-5, boxes, classes and masks equal; {render_fps:.1f} frames "
+          f"rendered/s on the card (host clock, raw scans copied up, frames "
+          f"left on the card, 3 passes after one); train_bscan_detector one "
+          f"epoch b{TRAIN_BATCH} 640px f32 EMA {decay}: {n} steps, median "
+          f"{statistics.median(step_ms):.2f} ms/step (host clock, synchronized "
+          f"around each step; steps {[round(m, 1) for m in step_ms]}), loss "
+          f"{rows[0]['total']:.4f} -> {rows[-1]['total']:.4f}, all finite; "
+          f"launches {counts}; EMA after the last step within {ema_err:.3g} "
+          f"of d*ema + (1-d)*params; the checkpoint restores the EMA; "
+          f"mAP@0.5 of the EMA on 64 of these frames after {n} steps: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in maps.items())
+          + f"; launches over the arms {eval_counts}", flush=True)
+    del trainer, state, data
+
+
+def denoising_phase(torch, dev, counters: dict, wrappers: dict,
+                    none: dict) -> list:
+    """Phase 20: phase 12's step with a contrastive denoising group of
+    M = 8 and 100 denoising queries (12 groups, D = 192), for both
+    decoders, at phase 12's gates, each leaf of both held to the discrete
+    step's rule; returns the records of the gathers at the inputs these
+    steps gave them."""
+    from pautdx_torch.losses.denoising import make_denoising_queries
+    from pautdx_torch.models.vision.dfine import dfine_nano
+    from pautdx_torch.ops import gather
+    from pautdx_torch.train.detector import (make_train_batches,
+                                             normalized_boxes)
+
+    size = 640
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in make_train_batches(1, 4, size, seed=5)[0].items()}
+    cfg = dfine_nano(num_labels=2)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    dn = make_denoising_queries(gen, normalized_boxes(batch["boxes"], size),
+                                batch["classes"], batch["mask"],
+                                cfg.num_labels, cfg.num_queries)
+    check(dn["class_ids"].shape == (4, 192), f"denoising queries "
+          f"{tuple(dn['class_ids'].shape)}, want (4, 192)")
+    kernels_vs_plain = step_check(torch, dev, counters, wrappers, none,
+                                  batch, size)
+    captured, dcaptured = {}, {}
+    # with the group, one backbone leaf's f32 gradient stands barely above
+    # the noise floor and moves by more than 1e-3 when only the order of
+    # the plain step's sums changes (the line of phase 20 prints by how
+    # much), so the bilinear step takes the discrete step's per-leaf rule
+    kernels_vs_plain(cfg, dict(weighted_gather=3, weighted_gather_backward=3),
+                     reorderings=weighted_reorderings(gather),
+                     denoising=dn, captured=captured, phase="20")
+    kernels_vs_plain(dataclasses.replace(cfg, decoder_method="discrete"),
+                     dict(onehot_gather=3, onehot_gather_backward=3),
+                     reorderings=onehot_reordered(gather),
+                     denoising=dn, captured=dcaptured, phase="20")
+    check(captured["weighted_gather"][1].shape[1] == 8 * (150 + 192),
+          f"weighted gather taps {tuple(captured['weighted_gather'][1].shape)}"
+          f", want {8 * (150 + 192)}")
+    per_step = dict(none, weighted_gather=3, weighted_gather_backward=3,
+                    onehot_gather=3, onehot_gather_backward=3)
+    records = gather_records(torch, dev, captured, dcaptured, per_step,
+                             per_step, suffix="_denoising")
+    flat, idx = (t.detach() for t in dcaptured["onehot_gather"])
+    records.append(onehot_record(torch, dev, flat, idx, 3,
+                                 "onehot_gather_denoising"))
+    for r in records:
+        print_record("20", r, "per step")
+    return records
+
+
 def main() -> None:
+    # before torch's first cuBLAS call: the step checks run under
+    # deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     t_start = time.perf_counter()
@@ -1421,28 +1768,8 @@ def main() -> None:
 
     # one-hot row gather at the inputs the serving run gave it
     flat, idx = captured["onehot_gather"]
-    got = gather.onehot_gather(flat, idx)
-    want = gather.onehot_gather_reference(flat, idx)
-    check(torch.equal(got, want), "serving gather differs from plain")
-    Bf, Lf, C = flat.shape
-    rows = torch.unique(idx.long().clamp(0, Lf - 1)
-                        + Lf * torch.arange(Bf, device=dev)[:, None]).numel()
-    nbytes = (got.numel() * got.element_size() + idx.numel() * 4
-              + rows * C * flat.element_size())
-    b_idx = torch.arange(Bf, device=dev)[:, None].expand_as(idx)
-    idx_long = idx.long()
-    kernels.append(dict(
-        name="onehot_gather", route="cuda",
-        source="pautdx_torch/csrc/onehot_gather.cu",
-        replaces="pautdx/ops/pallas_gather.py:36",
-        launches=counts["onehot_gather"], max_abs_err=max_abs_err(got, want),
-        **kernel_times(lambda: gather.onehot_gather(flat, idx),
-                       lambda: gather.onehot_gather_reference(flat, idx),
-                       lambda: flat[b_idx, idx_long]),
-        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        shape=f"flat {tuple(flat.shape)} {str(flat.dtype).split('.')[1]}, "
-              f"idx {tuple(idx.shape)}, {rows} distinct rows, {nbytes} "
-              f"bytes"))
+    kernels.append(onehot_record(torch, dev, flat, idx,
+                                 counts["onehot_gather"], "onehot_gather"))
     for r in kernels:
         print_record("6", r, "over the slab")
     del served, slab, stream, captured, logits, boxes
@@ -1669,6 +1996,9 @@ def main() -> None:
     print(f"[18 nms wide] kernel == plain bit for bit at B={nb}, ties at the "
           f"threshold 0.45 and a repeated row: " + "; ".join(found)
           + " (device time per call, L2 flushed)", flush=True)
+
+    volume_phase(torch, dev, counters, none)
+    kernels += denoising_phase(torch, dev, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

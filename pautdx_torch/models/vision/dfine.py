@@ -19,11 +19,11 @@ Ported: head-shared sampling points with the bilinear
 discrete one (the ``onehot_gather`` kernel), both forward and backward, so
 either decoder trains; per-head sampling points (the HF-architecture
 ``DFineConfig()``, plain PyTorch as in the reference); the fused AIFI
-attention kernel (inference only, head dims 16, 32 and 64); and the
-training mode of ``forward(images, train=True)``: BatchNorm on batch
+attention kernel (inference without a mask only, any head dim to 256);
+the training mode of ``forward(images, train=True)``: BatchNorm on batch
 statistics, dropout, and every ``stop_gradient`` of the reference as a
-``.detach()`` at the same place. The denoising queries raise
-``NotImplementedError``.
+``.detach()`` at the same place; and the contrastive denoising queries of
+``forward(..., denoising=...)``.
 """
 
 from __future__ import annotations
@@ -314,10 +314,12 @@ def _dropout(rate: float) -> nn.Module:
 
 
 class TorchMHA(nn.Module):
-    """Separate-projection MHA with additive pos embeddings on q/k and
-    dropout on the softmaxed weights in training. ``fused=True`` (the AIFI
-    layer) routes the attention through the ``ops.attention`` kernel in
-    eval only (``dfine.py:380``); training keeps the matmul chain."""
+    """Separate-projection MHA with additive pos embeddings on q/k, an
+    optional additive ``attn_mask`` on the logits (the denoising groups')
+    and dropout on the softmaxed weights in training. ``fused=True`` (the
+    AIFI layer) routes the attention through the ``ops.attention`` kernel
+    in eval and without a mask only (``dfine.py:380``); training keeps the
+    matmul chain."""
 
     def __init__(self, d: int, num_heads: int, fused: bool = False,
                  attention_dropout: float = 0.0):
@@ -330,8 +332,8 @@ class TorchMHA(nn.Module):
         self.v_proj = Dense(d, d)
         self.out_proj = Dense(d, d)
 
-    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, d = x.shape
         h = self.num_heads
         dh = d // h
@@ -339,13 +341,15 @@ class TorchMHA(nn.Module):
         q = self.q_proj(qk_in) * (dh ** -0.5)
         k = self.k_proj(qk_in)
         v = self.v_proj(x)
-        if self.fused and not self.training:
+        if self.fused and not self.training and attn_mask is None:
             return self.out_proj(attention.aifi_attention(q, k, v, h))
 
         def split(t):
             return t.reshape(B, N, h, dh).transpose(1, 2)
 
         logits = torch.matmul(split(q), split(k).transpose(-1, -2))
+        if attn_mask is not None:
+            logits = logits + attn_mask.to(logits.dtype)
         w = self.attn_drop(torch.softmax(logits, dim=-1))
         out = torch.matmul(w, split(v)).transpose(1, 2).reshape(B, N, d)
         return self.out_proj(out)
@@ -554,9 +558,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, pos: torch.Tensor,
                 value_levels: List[torch.Tensor],
-                reference_points: torch.Tensor) -> torch.Tensor:
+                reference_points: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         hidden = self.self_attn_layer_norm(
-            hidden + self.drop(self.self_attn(hidden, pos=pos)))
+            hidden + self.drop(self.self_attn(hidden, pos=pos,
+                                              attn_mask=attn_mask)))
         cross = self.encoder_attn(hidden + pos, value_levels,
                                   reference_points)
         hidden = self.gateway(hidden, self.drop(cross))
@@ -601,7 +607,7 @@ class DFine(nn.Module):
         model.enc_output = nn.Sequential(Dense(d, d), LayerNorm(d))
         model.enc_score_head = Dense(d, cfg.num_labels)
         model.enc_bbox_head = MLPHead(d, d, 4, 3)
-        # exists so that weights load strictly; denoising is training only
+        # the contrastive denoising queries' class embedding (training)
         model.denoising_class_embed = nn.Embedding(cfg.num_labels + 1, d)
         decoder = nn.Module()
         decoder.query_pos_head = MLPHead(4, 2 * d, d, 2)
@@ -657,11 +663,19 @@ class DFine(nn.Module):
                 ) -> Dict[str, Any]:
         """``train`` sets the module's mode (``nn.Module.train``), the one
         switch that BatchNorm, dropout and the fused attention read, as the
-        reference's ``__call__(images, train)`` does per call."""
+        reference's ``__call__(images, train)`` does per call.
+
+        ``denoising`` (training): a group from
+        ``losses.denoising.make_denoising_queries``, class_ids (B, D),
+        box_logits (B, D, 4) and attn_mask (D+Q, D+Q). Its D queries are
+        prepended after the top-Q query selection, which never sees them;
+        the mask goes to every decoder layer's self-attention, and the
+        output adds ``dn_logits`` and ``dn_boxes``, the denoising slots of
+        every head, split off the matching queries' heads."""
         if denoising is not None:
-            raise NotImplementedError(
-                "denoising queries (losses/denoising.py) are not ported yet "
-                "(ROADMAP.md, queue 1, item 9)")
+            missing = {"class_ids", "box_logits", "attn_mask"} - set(denoising)
+            if missing:
+                raise KeyError(f"denoising group lacks {sorted(missing)}")
         if train != self.training:
             self.train(train)
         c = self.cfg
@@ -694,6 +708,16 @@ class DFine(nn.Module):
         enc_topk_bboxes = torch.sigmoid(ref_unact)
         target = take(out_mem).detach()
         init_ref = ref_unact.detach()
+        attn_mask = None
+        dn_split = 0
+        if denoising is not None:
+            dn_target = m.denoising_class_embed(
+                denoising["class_ids"].long()).to(target.dtype)
+            target = torch.cat([dn_target, target], dim=1)
+            init_ref = torch.cat(
+                [denoising["box_logits"].to(init_ref.dtype), init_ref], dim=1)
+            attn_mask = denoising["attn_mask"][None, None]
+            dn_split = denoising["class_ids"].shape[1]
 
         value_levels = [s.reshape(s.shape[0], s.shape[1], s.shape[2],
                                   c.decoder_attention_heads, c.head_dim)
@@ -711,7 +735,7 @@ class DFine(nn.Module):
             ref_detach = ref_points.detach()
             pos = dec.query_pos_head(ref_detach).clamp(-10.0, 10.0)
             pos = pos.to(hidden.dtype)
-            hidden = layer(hidden, pos, value_levels, ref_detach)
+            hidden = layer(hidden, pos, value_levels, ref_detach, attn_mask)
             if i == 0:
                 new_ref = torch.sigmoid(dec.pre_bbox_head(hidden)
                                         + inverse_sigmoid(ref_detach))
@@ -733,7 +757,16 @@ class DFine(nn.Module):
             out_boxes.append(inter_ref)
             out_corners.append(pred_corners)
             out_refs.append(ref_points_initial)
+        extra = {}
+        if dn_split:
+            extra = {"dn_logits": [t[:, :dn_split] for t in out_logits],
+                     "dn_boxes": [t[:, :dn_split] for t in out_boxes]}
+            out_logits, out_boxes, out_corners, out_refs = (
+                [t[:, dn_split:] for t in ts]
+                for ts in (out_logits, out_boxes, out_corners, out_refs))
+            hidden = hidden[:, dn_split:]
         return {
+            **extra,
             "logits": out_logits[eval_idx + 1],
             "pred_boxes": out_boxes[eval_idx + 1],
             "last_hidden_state": hidden,

@@ -105,12 +105,17 @@ class ServingModel:
 
 
 def build_serving_model(device: Optional[Union[str, torch.device]] = None,
-                        batch: int = 128, seed: int = 0) -> ServingModel:
-    """The serving model of ``bench.py:79-100``: seeded init, every float32
-    weight and statistic cast to bf16, then the uint8 stem fold."""
+                        batch: int = 128, seed: int = 0,
+                        state_dict: Optional[dict] = None) -> ServingModel:
+    """The serving model of ``bench.py:79-100``: seeded init, or the float32
+    weights and BN statistics of a trained ``dfine_nano(num_labels=2)`` in
+    ``state_dict`` (the serving options take the same tensors), every
+    float32 weight and statistic cast to bf16, then the uint8 stem fold."""
     dev = resolve_device(device)
     cfg = serving_config()
     model = DFine(cfg, device=dev, seed=seed)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
     fold_uint8_stem(cast_params_bf16(model))
     return ServingModel(model=model, cfg=cfg, batch=batch)
 

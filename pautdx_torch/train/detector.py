@@ -1,10 +1,13 @@
-"""The D-FINE training entry point.
+"""The D-FINE training entry points.
 
-Counterpart of the D-FINE branch of ``pautdx/cli.py:205-247``
-(``train-detector --detector dfine``) without its volume loading (the
-volume-to-frames pipeline and the CLI are ROADMAP queue 1, items 12 and
-15): the objective, the trainer and the checkpoint metadata, over batches
-in the ``data/vision.py::batch_frames`` schema:
+Counterpart of the D-FINE branch of ``pautdx/cli.py:168-247``
+(``train-detector --detector dfine``): :func:`train_bscan_detector` reads a
+directory of PAUT volumes (``.json`` files and txt-tree folders), renders
+them to B-scan frames on the card, batches them on a host thread and
+trains D-FINE-nano through the ``Trainer`` with per-epoch checkpoints.
+The ``train-detector`` subcommand itself waits for the CLI (ROADMAP.md,
+queue 1, item 15). Batches follow the ``data/vision.py::batch_frames``
+schema:
 
 - ``images``: (B, S, S, 3) float32 frames in [0, 1];
 - ``boxes``: (B, M, 4) xyxy in pixels;
@@ -17,33 +20,80 @@ and measurements.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Union
+import os
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from pautdx_torch.data.augment_vision import augment_detection_batch
+from pautdx_torch.data.prefetch import ThreadedHostLoader
+from pautdx_torch.data.vision import (batch_frames,
+                                      detection_frames_from_volume,
+                                      split_frames)
+from pautdx_torch.data.volume import parse_json_volume, parse_txt_tree
+from pautdx_torch.device import resolve_device
+from pautdx_torch.losses.denoising import (denoising_loss,
+                                           make_denoising_queries)
 from pautdx_torch.losses.detr import dfine_criterion
 from pautdx_torch.models.vision.dfine import (DFine, DFineConfig,
                                               config_to_dict, dfine_nano)
 from pautdx_torch.train.optim import make_optimizer
-from pautdx_torch.train.trainer import Trainer
+from pautdx_torch.train.trainer import Trainer, TrainState
+
+
+def normalized_boxes(boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """Pixel xyxy boxes of a ``size`` frame -> normalized cxcywh."""
+    boxes = boxes / size
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return torch.stack([cx, cy, w, h], -1)
 
 
 def dfine_objective(size: int, cfg: DFineConfig) -> Callable:
     """``cli.py:212-221``: pixel xyxy boxes -> normalized cxcywh, then the
-    D-FINE criterion."""
+    D-FINE criterion; with a denoising group in the output (see
+    :func:`denoising_forward`), plus ``denoising_loss`` of every head's
+    denoising slots (aux ``dn``)."""
 
     def objective(out, batch):
-        boxes = batch["boxes"] / size
-        cx = (boxes[..., 0] + boxes[..., 2]) / 2
-        cy = (boxes[..., 1] + boxes[..., 3]) / 2
-        w = boxes[..., 2] - boxes[..., 0]
-        h = boxes[..., 3] - boxes[..., 1]
-        cxcywh = torch.stack([cx, cy, w, h], -1)
-        return dfine_criterion(out, cxcywh, batch["classes"], batch["mask"],
-                               cfg.num_labels, cfg.max_num_bins)
+        cxcywh = normalized_boxes(batch["boxes"], size)
+        loss, aux = dfine_criterion(out, cxcywh, batch["classes"],
+                                    batch["mask"], cfg.num_labels,
+                                    cfg.max_num_bins)
+        if "dn_logits" in out:
+            dn = sum(denoising_loss(lg, bx, out["denoising"], cxcywh,
+                                    batch["classes"])[0]
+                     for lg, bx in zip(out["dn_logits"], out["dn_boxes"]))
+            loss = loss + dn
+            aux = {**aux, "dn": dn, "total": loss}
+        return loss, aux
 
     return objective
+
+
+def denoising_forward(size: int, cfg: DFineConfig, num_denoising: int,
+                      gen: torch.Generator) -> Callable:
+    """The ``Trainer``'s training forward with a contrastive denoising
+    group: ``forward(model, batch)`` draws the group from ``gen`` and the
+    batch's boxes, runs the model with it and returns the output with the
+    group under ``"denoising"``, which :func:`dfine_objective` reads."""
+
+    # the decoder's matching queries: the top num_queries of the anchors,
+    # or every anchor where a small frame has fewer
+    queries = min(cfg.num_queries,
+                  sum((size // s) ** 2 for s in cfg.feat_strides))
+
+    def forward(model, batch):
+        dn = make_denoising_queries(
+            gen, normalized_boxes(batch["boxes"], size), batch["classes"],
+            batch["mask"], cfg.num_labels, queries, num_denoising)
+        out = model(batch["images"], train=True, denoising=dn)
+        return {**out, "denoising": dn}
+
+    return forward
 
 
 # the CLI's defaults: --num-classes, --lr, --max-boxes
@@ -101,3 +151,80 @@ def make_train_batches(n: int, batch: int, size: int = 640, seed: int = 0
         out.append({"images": images, "boxes": boxes, "classes": classes,
                     "mask": mask})
     return out
+
+
+def train_bscan_detector(data_dir: str, size: int = 640,
+                         batch_size: int = 16, epochs: int = 1,
+                         lr: float = LR, max_boxes: int = MAX_BOXES,
+                         augment: bool = False, out: Optional[str] = None,
+                         detector: str = "dfine",
+                         ema_decay: Optional[float] = None,
+                         num_denoising: int = 0,
+                         device: Optional[Union[str, torch.device]] = None,
+                         log: Callable[[str], None] = print
+                         ) -> Tuple[Trainer, TrainState]:
+    """``train-detector --detector dfine`` (``cli.py:168-247``) on
+    ``device`` (default ``"cuda"``): the volumes of ``data_dir`` rendered
+    to frames, split, shuffled by ``default_rng(0)`` each epoch and cut
+    into full batches on a host thread (augmented where ``augment``), then
+    ``DFine(dfine_nano(NUM_CLASSES))`` trained at ``lr`` with seeded
+    weights; with ``out``, a checkpoint with ``dfine_metadata`` after every
+    epoch. ``ema_decay`` keeps the EMA of the parameters; ``num_denoising``
+    > 0 adds contrastive denoising groups of that many queries (rounded to
+    whole groups of 2 * ``max_boxes``), drawn from a generator seeded with
+    0. Returns the trainer and its state."""
+    if detector != "dfine":
+        raise NotImplementedError(
+            f"train_bscan_detector(detector={detector!r}): only 'dfine' is "
+            f"ported; the YOLO loss (losses/yolo.py) waits for ROADMAP.md, "
+            f"queue 1, item 10")
+    dev = resolve_device(device)
+    frames_list = []
+    for entry in sorted(os.listdir(data_dir)):
+        path = os.path.join(data_dir, entry)
+        if entry.endswith(".json"):
+            vol = parse_json_volume(path)
+        elif os.path.isdir(path):
+            vol = parse_txt_tree(data_dir, entry)
+        else:
+            continue
+        frames_list.extend(split_frames(detection_frames_from_volume(
+            vol, out_size=size, max_boxes=max_boxes, device=dev)))
+    log(f"{len(frames_list)} frames")
+    if len(frames_list) < batch_size:
+        raise ValueError(f"{len(frames_list)} frames in {data_dir}: fewer "
+                         f"than one batch of {batch_size}")
+    rng = np.random.default_rng(0)
+
+    def batches():
+        order = rng.permutation(len(frames_list))
+        for i in range(len(frames_list) // batch_size):
+            batch = batch_frames(
+                frames_list, order[i * batch_size:(i + 1) * batch_size])
+            if augment:
+                batch = augment_detection_batch(batch, rng)
+            yield batch
+
+    cfg = dfine_nano(num_labels=NUM_CLASSES)
+    forward = None
+    if num_denoising > 0:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        forward = denoising_forward(size, cfg, num_denoising, gen)
+    trainer = Trainer(DFine(cfg, device=dev),
+                      dfine_objective(size, cfg), make_optimizer(lr),
+                      checkpoint_dir=out, ema_decay=ema_decay,
+                      input_key="images", forward=forward)
+    # the reference draws its init batch from the epoch stream: one
+    # permutation of the generator, kept so that the epochs' orders match
+    state = trainer.init(next(iter(batches())))
+    for epoch in range(epochs):
+        state, metrics = trainer.train_epoch(
+            state, ThreadedHostLoader(batches()))
+        log(f"[epoch {epoch}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in metrics.items()))
+        if trainer.ckpt is not None:
+            trainer.ckpt.save(epoch, state.state_dict(),
+                              metadata=dfine_metadata(cfg, size),
+                              history={k: [v] for k, v in metrics.items()},
+                              is_best=True)
+    return trainer, state

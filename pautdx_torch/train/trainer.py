@@ -20,18 +20,28 @@ statistics (snapshot before the forward) all stay as they were. Deciding
 that takes one host sync per step, on top of the criterion's own (its
 Hungarian solve runs on the host).
 
-Not ported: ``mesh=`` (data parallelism, ROADMAP queue 1, item 14), the
-reference's EMA of the parameters (``optim.ema_update`` is ported; no
-entry point turns it on) and ``data/prefetch.py``'s threaded loader; the
-input pipeline here keeps ``PREFETCH`` batches in flight, copied from
-pinned host memory with ``non_blocking=True``. Dropout draws from torch's
-global generator, so the reference's ``seed`` argument is not kept (the
-nano preset has no dropout).
+``ema_decay`` keeps the reference's EMA of the parameters (not of the BN
+statistics) on the :class:`TrainState`: ``ema = d * ema + (1 - d) *
+params`` after every step, a refused step included, where the parameters
+did not move (``trainer.py:137-143``); the checkpoint saves and restores
+it, and :func:`ema_weights` evaluates it with the live BN statistics.
+``forward`` replaces the training forward ``model(batch[input_key],
+train=True)`` by ``forward(model, batch)``, which is how the denoising
+groups, drawn from the batch's boxes, reach the model.
+
+Not ported: ``mesh=`` (data parallelism, ROADMAP queue 1, item 14). The
+input pipeline keeps ``PREFETCH`` batches in flight, copied from pinned
+host memory with ``non_blocking=True``; host-side batch assembly runs on
+a thread through ``data.prefetch.ThreadedHostLoader`` where the caller
+wraps its batches in one. Dropout draws from torch's global generator, so
+the reference's ``seed`` argument is not kept (the nano preset has no
+dropout).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
@@ -42,7 +52,8 @@ from torch import nn
 
 from pautdx_torch.train.checkpoint import CheckpointManager, load_model_state
 from pautdx_torch.train.optim import (ClippedAdamW, OptimizerSpec,
-                                      ReduceLROnPlateau, global_norm)
+                                      ReduceLROnPlateau, ema_update,
+                                      global_norm)
 from pautdx_torch.utils.debug import guarded
 
 PREFETCH = 2      # batches whose host-to-device copies run ahead of the step
@@ -64,6 +75,7 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: ClippedAdamW
+    ema: Optional[Dict[str, torch.Tensor]] = None   # parameter name -> EMA
 
     def state_dict(self) -> Dict[str, Any]:
         """CPU copies of everything a checkpoint keeps."""
@@ -72,19 +84,48 @@ class TrainState:
             "params": dict(self.model.named_parameters()),
             "batch_stats": dict(self.model.named_buffers()),
             "opt_state": self.optimizer.state_dict(),
+            "ema_params": self.ema,
         })
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         load_model_state(self.model, state)
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
+        if state.get("ema_params") is not None:
+            params = dict(self.model.named_parameters())
+            self.ema = {k: v.to(params[k].device, params[k].dtype).clone()
+                        for k, v in state["ema_params"].items()}
+
+
+@contextlib.contextmanager
+def ema_weights(state: TrainState):
+    """The model with its parameters replaced by the state's EMA for a
+    while, BN statistics left as trained (the reference's harness evaluates
+    the EMA so); the trained parameters come back afterwards, also on an
+    exception."""
+    if state.ema is None:
+        raise ValueError("ema_weights: the trainer keeps no EMA "
+                         "(Trainer(ema_decay=...))")
+    params = dict(state.model.named_parameters())
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(state.ema[k])
+    try:
+        yield state.model
+    finally:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
 
 
 class Trainer:
     def __init__(self, model: nn.Module, objective: Callable,
                  optimizer: OptimizerSpec,
                  *, mesh=None, checkpoint_dir: Optional[str] = None,
-                 input_key: str = "images"):
+                 ema_decay: Optional[float] = None,
+                 input_key: str = "images",
+                 forward: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer(mesh=...): data-parallel training is not ported "
@@ -92,7 +133,10 @@ class Trainer:
         self.model = model
         self.objective = guarded(objective)
         self.optimizer = optimizer
+        self.ema_decay = ema_decay
         self.input_key = input_key
+        self.forward = forward or (
+            lambda m, batch: m(batch[input_key], train=True))
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir \
             else None
         self.history: Dict[str, list] = {}
@@ -110,8 +154,11 @@ class Trainer:
         if self.input_key not in example_batch:
             raise KeyError(f"Trainer.init: the batch has no "
                            f"'{self.input_key}'")
+        ema = ({k: p.detach().clone()
+                for k, p in self.model.named_parameters()}
+               if self.ema_decay else None)
         return TrainState(step=0, model=self.model,
-                          optimizer=self.optimizer.init(self.model))
+                          optimizer=self.optimizer.init(self.model), ema=ema)
 
     # -- steps ------------------------------------------------------------
     def _bn_buffers(self) -> List[torch.Tensor]:
@@ -119,15 +166,16 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    lr_scale: float = 1.0) -> Dict[str, float]:
-        """One guarded step on a batch already on the device; returns the
-        objective's aux plus ``update_was_finite`` and ``grad_norm``."""
+        """One guarded step on a batch already on the device, then the
+        EMA's; returns the objective's aux plus ``update_was_finite`` and
+        ``grad_norm``."""
         model, opt = state.model, state.optimizer
         bufs = self._bn_buffers()
         if bufs:
             if self._bn_snapshot is None:
                 self._bn_snapshot = [torch.empty_like(b) for b in bufs]
             torch._foreach_copy_(self._bn_snapshot, bufs)
-        out = model(batch[self.input_key], train=True)
+        out = self.forward(model, batch)
         loss, aux = self.objective(out, batch)
         opt.zero_grad()
         loss.backward()
@@ -145,6 +193,9 @@ class Trainer:
             opt.step(lr_scale, grad_norm)
         elif bufs:
             torch._foreach_copy_(bufs, self._bn_snapshot)
+        if state.ema is not None:
+            ema_update(state.ema, dict(model.named_parameters()),
+                       self.ema_decay)
         state.step += 1
         row = dict(zip(names, values[2:]))
         row["update_was_finite"] = values[0]

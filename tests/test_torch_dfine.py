@@ -242,5 +242,5 @@ def test_serving_slice_matches_reference(jax_model):
                             tout["pred_boxes"].numpy(),
                             np.asarray(jout["logits"]),
                             np.asarray(jout["pred_boxes"]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="class_ids"):
         model(torch.from_numpy(xp), denoising={})

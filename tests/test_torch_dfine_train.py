@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from pautdx.losses import denoising as j_denoising
 from pautdx.losses.detr import dfine_criterion as j_criterion
 from pautdx.models.vision import dfine as jdf
 from pautdx_torch.compat.jax_weights import load_jax_variables, port_state_dict
@@ -134,6 +135,53 @@ def test_train_step_matches_reference(reference):
                             [n for n, _ in model.named_buffers()])
     for name, buf in model.named_buffers():
         torch.testing.assert_close(buf, stats[name], rtol=1e-5, atol=1e-5)
+
+
+def test_denoising_forward_matches_reference(reference):
+    """One train-mode forward with a contrastive denoising group (M = 8 and
+    16 denoising queries: 2 groups, D = 32), the group made by the JAX
+    function: the matching heads and every head's ``dn_logits`` and
+    ``dn_boxes`` within 1e-4 of the JAX model's, slot for slot (all 80
+    anchors are selected, and the group, prepended after the selection,
+    does not reach it)."""
+    b = reference["batches"][0]
+    boxes = b["boxes"] / IMG
+    cxcywh = np.stack([(boxes[..., 0] + boxes[..., 2]) / 2,
+                       (boxes[..., 1] + boxes[..., 3]) / 2,
+                       boxes[..., 2] - boxes[..., 0],
+                       boxes[..., 3] - boxes[..., 1]], -1)
+    cfg = reference["cfg"]
+    dn = jax.jit(j_denoising.make_denoising_queries,
+                 static_argnums=(4, 5, 6))(
+        jax.random.PRNGKey(3), jnp.asarray(cxcywh), jnp.asarray(b["classes"]),
+        jnp.asarray(b["mask"]), 2, 80, 16)
+
+    @jax.jit
+    def forward(variables, images, dn):
+        out, _ = jdf.DFine(cfg).apply(variables, images, train=True,
+                                      denoising=dn, mutable=["batch_stats"])
+        return out
+
+    want = forward(reference["variables"], jnp.asarray(b["images"]), dn)
+    model = _port(reference["variables"])
+    with torch.no_grad():
+        got = model(torch.from_numpy(b["images"]), train=True,
+                    denoising={k: torch.from_numpy(np.array(v))
+                               for k, v in dn.items()})
+    assert got.keys() == want.keys()
+    assert got["dn_logits"][0].shape == (2, 32, 2)
+    assert got["logits"].shape == (2, 80, 2)
+    for key in ("logits", "pred_boxes", "enc_topk_logits", "enc_topk_bboxes",
+                "last_hidden_state"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+    for key in ("dn_logits", "dn_boxes", "intermediate_logits",
+                "intermediate_boxes", "intermediate_corners",
+                "initial_references"):
+        assert len(got[key]) == len(want[key])
+        for i, (g, w) in enumerate(zip(got[key], want[key])):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{key}[{i}]")
 
 
 def test_eval_mode_takes_no_batch_statistics(reference):

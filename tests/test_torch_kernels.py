@@ -371,13 +371,16 @@ def _weighted_inputs(B, L, C, T, seed, device):
 @pytest.mark.parametrize("shape,pile_up", [
     ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
     ((2, 30, 8, 5), False), ((2, 20000, 128, 500), False),
-    ((4, 2000, 128, 1200), True)])
+    ((4, 2000, 128, 1200), True), ((16, 2000, 128, 2736), False),
+    ((4, 2000, 128, 2736), False)])
 def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     """Forward and both gradients against the plain version and its
     autograd, to 1e-5 of the largest magnitude: the forward sums four
     products in another order, and the backward's scatter runs in
     shared-memory atomics whose order changes from run to run. (16, 2000,
-    128) x 1200 taps is the training path's; T=37 and C=8 are ragged;
+    128) x 1200 taps is the training path's, x 2736 its taps with a
+    denoising group of 192 queries (150 + 192 queries x 8 points), at b16
+    and at b4; T=37 and C=8 are ragged;
     L=20000 splits the backward's rows into ranges; the pile-up sends
     every corner of a frame to one row."""
     flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
