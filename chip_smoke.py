@@ -2,8 +2,10 @@
 holds each against its plain PyTorch version, then drives the D-FINE-nano
 640px serving path (the configuration of the root ``bench.py``), the
 YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step, the
-HF-architecture D-FINE 640px predict path and D-FINE-nano training from
-PAUT volumes through their entry points.
+HF-architecture D-FINE 640px predict path, D-FINE-nano training from
+PAUT volumes and the temporal D-FINE serving path (50-frame sequences
+through the chunked runner and the frames bridge) through their entry
+points.
 
     python3 chip_smoke.py
 
@@ -132,7 +134,26 @@ Phases, one line each, in order; any failure exits non-zero:
     order moves it by more than 1e-3); the
     records of the weighted gather, its backward, the one-hot gather and
     its backward at the inputs these steps gave them, each with its bound
-    and library call, as phase 13's.
+    and library call, as phase 13's;
+21. ``TemporalDFine`` v1, v2 and v3 over the nano discrete trunk
+    (``serve.temporal_predict.build_temporal_model``: seeded weights,
+    then ``init_heads_from_trunk``) in f32, TF32 off, T = 8 frames of
+    640px, once through the kernels and once through the plain versions:
+    per-frame detection sets matched by assignment, v3's anomaly scores
+    within 1e-4; one forward launches the one-hot gather 3 times and
+    nothing else (the trunk's AIFI stays unfused);
+22. the temporal serving run: ``build_temporal_model("v3")`` in bf16 over
+    a (4, 50, 640, 640, 3) uint8 slab made on the card, dequantized there;
+    counts the launches (12 one-hot gathers), checks the outputs are
+    finite, times frames/s through the kernels and, in turns with it,
+    through the plain versions, and records the one-hot gather at a
+    50-frame chunk's inputs, (50, 2000, 128) bf16 x 1200 taps; then
+    ``predict_sequence`` end to end over 170 host uint8 frames (windows
+    (0, 50), (50, 100), (100, 150) and the re-anchored (120, 170), one
+    result per frame, 12 launches), frames/s with the host-to-card copies;
+    a 7-frame stack padded to 50; and a [2][640][640] JSON through
+    ``serve.bridge.serve_frames``, answered in the {box, label, score}
+    schema.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -196,6 +217,11 @@ FLUSH_BYTES = 128 * 2**20
 HEAD_DIMS = (1, 8, 16, 24, 32, 37, 48, 64, 80, 100, 128, 200, 256)
 WIDE_NMS_K = (1025, 1500, 2048, 4096)
 VOLUME_SEEDS = range(100, 104)  # phase 19: the accuracy harness's first four
+TEMPORAL_T = 8            # phase 21's sequence
+TEMPORAL_IMG = 640
+TEMPORAL_ANOMALY_TOL = 1e-4
+TEMPORAL_STEPS = 4        # phase 22: 50-frame chunks in the slab
+TEMPORAL_RUNNER_FRAMES = 170
 
 
 def fail(msg: str) -> None:
@@ -1558,6 +1584,148 @@ def denoising_phase(torch, dev, counters: dict, wrappers: dict,
     return records
 
 
+def temporal_phases(torch, dev, counters: dict, wrappers: dict,
+                    none: dict) -> list:
+    """Phases 21-22, the temporal D-FINE over the nano discrete trunk;
+    returns the one-hot gather's record at a 50-frame chunk's inputs."""
+    import io
+
+    from pautdx_torch.data.windowing import chunked_windows
+    from pautdx_torch.models.vision.temporal_dfine import VARIANTS
+    from pautdx_torch.serve.bridge import serve_frames
+    from pautdx_torch.serve.temporal_predict import (
+        SEQ_LEN, build_temporal_model, make_temporal_stream, predict_sequence,
+    )
+    from pautdx_torch.serve.throughput import make_uint8_slab, measure_fps
+
+    # 21. v1/v2/v3 in f32, through the kernels and through the plain versions
+    side = TEMPORAL_IMG
+    frames = make_uint8_slab((TEMPORAL_T, side, side, 3), seed=9,
+                             device=dev).to(torch.float32) / 255.0
+    found = []
+    for variant in VARIANTS:
+        model = build_temporal_model(variant, device=dev, seed=0,
+                                     dtype=torch.float32)
+        reset_counts(counters)
+        with torch.inference_mode():
+            out_k = model(frames)
+        torch.cuda.synchronize()
+        counts = launch_counts(counters)
+        check(counts == dict(none, onehot_gather=3),
+              f"temporal {variant} forward launched {counts}, want the "
+              f"one-hot gather 3 times and nothing else")
+        with plain_kernels(wrappers), torch.inference_mode():
+            out_p = model(frames)
+        check(launch_counts(counters) == counts,
+              f"the plain temporal {variant} forward launched a kernel")
+        la, ba, lb, bb = (t.float().cpu().numpy() for t in (
+            out_k["logits"], out_k["pred_boxes"], out_p["logits"],
+            out_p["pred_boxes"]))
+        why = same_detections(la, ba, lb, bb)
+        check(not why, f"temporal {variant} f32, kernels vs plain: {why}")
+        note = f"max |logit diff| {np.abs(la - lb).max():.3g}"
+        if variant == "v3":
+            err = max_abs_err(out_k["anomaly"], out_p["anomaly"])
+            check(err <= TEMPORAL_ANOMALY_TOL, f"temporal v3 anomaly: max "
+                  f"|err| {err:.3g} beyond {TEMPORAL_ANOMALY_TOL}")
+            note += f", anomaly max |err| {err:.3g}"
+        found.append(f"{variant} ({tuple(out_k['logits'].shape)} logits, "
+                     f"{note})")
+        del model, out_k, out_p
+    print(f"[21 temporal model] TemporalDFine v1/v2/v3 over dfine_nano "
+          f"discrete, {side}px f32, T={TEMPORAL_T}, TF32 off, seeded weights "
+          f"then init_heads_from_trunk: per-frame detections through the "
+          f"kernels match the plain versions' by assignment: "
+          + "; ".join(found) + f"; one forward launches "
+          f"{dict(none, onehot_gather=3)}", flush=True)
+    del frames
+
+    # 22. the serving run: v3, bf16, a (4, 50, 640, 640, 3) uint8 slab
+    model = build_temporal_model("v3", device=dev, seed=0)
+    stream = make_temporal_stream(model)
+    slab = make_uint8_slab((TEMPORAL_STEPS, SEQ_LEN, side, side, 3),
+                           seed=10, device=dev)
+    stream(slab[:1])                       # warm-up: cuDNN plans, caches
+    torch.cuda.synchronize()
+    captured = {}
+    with first_inputs(wrappers, captured):
+        reset_counts(counters)
+        logits, boxes, finite = stream(slab)
+        torch.cuda.synchronize()
+        counts = launch_counts(counters)
+    check(counts == dict(none, onehot_gather=3 * TEMPORAL_STEPS),
+          f"temporal serving run launches {counts}, want the one-hot gather "
+          f"{3 * TEMPORAL_STEPS} times")
+    check(bool(finite), "temporal serving outputs are not all finite")
+    queries = min(150, (side // 16) ** 2 + (side // 32) ** 2)
+    check(tuple(logits.shape) == (SEQ_LEN, queries, 3)
+          and tuple(boxes.shape) == (SEQ_LEN, queries, 4),
+          f"temporal serving outputs {tuple(logits.shape)} "
+          f"{tuple(boxes.shape)}")
+    fps = {"kernels": [], "plain": []}
+    for arm in ("kernels", "plain", "plain", "kernels") * 3:
+        with plain_kernels(wrappers) if arm == "plain" else nullcontext():
+            fps[arm].append(measure_fps(stream, slab))
+    print(f"[22 temporal serving] TemporalDFine v3, bf16 weights, uint8 slab "
+          f"{tuple(slab.shape)} dequantized on the card (logits "
+          f"{str(logits.dtype).split('.')[1]}, the GRU's f32 carry): median "
+          f"{statistics.median(fps['kernels']):.1f} frames/s through the "
+          f"kernels {[round(f, 1) for f in fps['kernels']]}, median "
+          f"{statistics.median(fps['plain']):.1f} through the plain versions "
+          f"{[round(f, 1) for f in fps['plain']]} ({TEMPORAL_STEPS} chunks "
+          f"of {SEQ_LEN} frames x 3 calls each, CUDA events, eager); "
+          f"launches over one slab: {counts}; outputs finite", flush=True)
+    flat, idx = captured["onehot_gather"]
+    record = onehot_record(torch, dev, flat, idx, counts["onehot_gather"],
+                           "onehot_gather_temporal")
+    print_record("22", record, "over the slab")
+    del stream, slab, captured, logits, boxes, flat, idx
+
+    # the chunked runner end to end on host frames, copies included
+    n = TEMPORAL_RUNNER_FRAMES
+    host = make_uint8_slab((n, side, side, 3), seed=11,
+                           device=dev).cpu().numpy()
+    windows = chunked_windows(n, SEQ_LEN)
+    check(windows == [(0, 50), (50, 100), (100, 150), (120, 170)],
+          f"windows of {n} frames: {windows}")
+    predict_sequence(model, host)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    results = predict_sequence(model, host)
+    runner_s = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    check(len(results) == n and all(isinstance(r, list) for r in results),
+          f"the runner gave {len(results)} results for {n} frames")
+    check(counts == dict(none, onehot_gather=3 * len(windows)),
+          f"the runner over {n} frames launched {counts}")
+    dets = [d for frame in results for d in frame]
+    check(all(set(d) == {"box", "label", "score"} and d["score"] >= 0.3
+              for d in dets), "the runner's detections break the schema")
+    short = predict_sequence(model, host[:7])
+    check(len(short) == 7, f"a 7-frame stack gave {len(short)} results")
+    wire = json.dumps(np.round(host[:2, :, :, 0] / 255.0, 4).tolist())
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    serve_frames(lambda f: predict_sequence(model, f),
+                 stdin=io.StringIO(wire), stdout=stdout)
+    bridge_s = time.perf_counter() - t0
+    bridged = json.loads(stdout.getvalue())
+    check(len(bridged) == 2 and all(
+        set(d) == {"box", "label", "score"} for f in bridged for d in f),
+        f"the bridge returned {len(bridged)} frames")
+    print(f"[22 temporal runner] predict_sequence over {n} host uint8 frames "
+          f"(windows {windows}): {n / runner_s:.1f} frames/s ({runner_s:.3f} "
+          f"s, host-to-card copies, post_process and the per-frame schema "
+          f"included, after one warm-up run); {len(dets)} detections, every "
+          f"frame one result; launches {counts}; a 7-frame stack padded to "
+          f"{SEQ_LEN}: 7 results; serve_frames over a [2][{side}][{side}] JSON "
+          f"({len(wire)} bytes): 2 frames, {sum(map(len, bridged))} "
+          f"detections, {bridge_s:.3f} s", flush=True)
+    del model, host
+    return [record]
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -1999,6 +2167,7 @@ def main() -> None:
 
     volume_phase(torch, dev, counters, none)
     kernels += denoising_phase(torch, dev, counters, wrappers, none)
+    kernels += temporal_phases(torch, dev, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

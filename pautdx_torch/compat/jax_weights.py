@@ -16,7 +16,16 @@ entry of the module's ``state_dict()`` by its leaf name:
   (``LearnableAffine``), else ``<p>.weight`` (BatchNorm, LayerNorm);
 - ``<p>.bias``      -> ``<p>.bias``;
 - ``<p>.embedding`` -> ``<p>.weight``;
-- batch_stats ``<p>.mean``/``<p>.var`` -> ``<p>.running_mean``/``running_var``.
+- batch_stats ``<p>.mean``/``<p>.var`` -> ``<p>.running_mean``/``running_var``;
+- a JAX ``GRUCell`` (``<p>.GRUCell_0`` the forward cell, ``<p>.GRUCell_1``
+  the backward one, as the reference's ``BiGRU`` names them) -> the
+  ``torch.nn.GRU`` entries ``<p>.weight_ih_l0``, ``weight_hh_l0``,
+  ``bias_ih_l0``, ``bias_hh_l0`` (``_reverse`` for the backward cell): the
+  input Denses ``ir``/``iz``/``in`` stack as (r, z, n) rows into
+  ``weight_ih`` and their biases into ``bias_ih``; the hidden Denses
+  ``hr``/``hz``/``hn`` into ``weight_hh``, and ``bias_hh`` is
+  ``[0, 0, b_hn]`` (``hr`` and ``hz`` have no bias). Both compute
+  ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``.
 
 Loading is strict: every parameter and buffer of the module is filled and
 every JAX leaf is used, or a ``KeyError`` names what is missing and what
@@ -25,6 +34,7 @@ is left over.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, Optional, Union
 
@@ -60,6 +70,47 @@ def _renamed(path: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
+_GRU_LEAF = re.compile(
+    r"^(?:(.*)\.)?GRUCell_([01])\.(ir|iz|in|hr|hz|hn)\.(kernel|bias)$")
+_GRU_LEAVES = ("ir.kernel", "ir.bias", "iz.kernel", "iz.bias", "in.kernel",
+               "in.bias", "hr.kernel", "hz.kernel", "hn.kernel", "hn.bias")
+
+
+def _gru_entries(params: Dict[str, np.ndarray]
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The GRU cells among flat params -> {each cell's JAX path: the four
+    ``nn.GRU`` entries it fills}. Raises ``KeyError`` for a cell that
+    lacks one of its ten leaves."""
+    cells: Dict[tuple, Dict[str, torch.Tensor]] = {}
+    for path, arr in params.items():
+        m = _GRU_LEAF.match(path)
+        if m:
+            prefix, cell, gate, leaf = m.groups()
+            cells.setdefault((prefix, cell), {})[f"{gate}.{leaf}"] = \
+                _to_tensor(arr)
+    out = {}
+    for (prefix, cell), g in cells.items():
+        src = f"{prefix}.GRUCell_{cell}" if prefix else f"GRUCell_{cell}"
+        missing = [k for k in _GRU_LEAVES if k not in g]
+        if missing:
+            raise KeyError(f"load_jax_variables: GRU cell {src} lacks "
+                           f"{missing}")
+        base = f"{prefix}." if prefix else ""
+        sfx = "_reverse" if cell == "1" else ""
+        hn_b = g["hn.bias"]
+        out[src] = {
+            f"{base}weight_ih_l0{sfx}": torch.cat(
+                [g[f"{k}.kernel"].t() for k in ("ir", "iz", "in")]),
+            f"{base}weight_hh_l0{sfx}": torch.cat(
+                [g[f"{k}.kernel"].t() for k in ("hr", "hz", "hn")]),
+            f"{base}bias_ih_l0{sfx}": torch.cat(
+                [g[f"{k}.bias"] for k in ("ir", "iz", "in")]),
+            f"{base}bias_hh_l0{sfx}": torch.cat(
+                [torch.zeros_like(hn_b), torch.zeros_like(hn_b), hn_b]),
+        }
+    return out
+
+
 def port_state_dict(variables: Mapping, target_keys,
                     transposed_keys=()) -> Dict[str, torch.Tensor]:
     """JAX variables -> {state_dict key: tensor} keyed for a module whose
@@ -70,7 +121,16 @@ def port_state_dict(variables: Mapping, target_keys,
     transposed_keys = set(transposed_keys)
     out: Dict[str, torch.Tensor] = {}
     unused = []
-    for path, arr in flatten(variables.get("params", {})).items():
+    params = flatten(variables.get("params", {}))
+    for src, entries in _gru_entries(params).items():
+        for key, t in entries.items():
+            if key in target_keys:
+                out[key] = t.contiguous()
+            else:
+                unused.append(f"{src} -> {key}")
+    for path, arr in params.items():
+        if _GRU_LEAF.match(path):
+            continue
         leaf = path.rpartition(".")[2]
         t = _to_tensor(arr)
         if leaf == "kernel":

@@ -2,9 +2,8 @@
 
 Counterpart of ``pautdx/data/vision.py``: rendered B-scans (rendered on the
 card by ``data.bscan``) plus padded (boxes, classes, mask) targets of a
-static M, host-side batching and the letterbox transform. The reference's
-``sequence_chunks`` and ``data/windowing.py`` belong to the temporal models
-(ROADMAP.md, queue 1, item 8).
+static M, host-side batching, the letterbox transform and the temporal
+models' sequence chunks (``data.windowing``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 
 from pautdx_torch.data.bscan import bbox_xyxy_from_schema, render_volume_dataset
 from pautdx_torch.data.volume import ParsedVolume
+from pautdx_torch.data.windowing import chunked_windows
 
 
 @dataclasses.dataclass
@@ -63,6 +63,20 @@ def detection_frames_from_volume(
     if rgb:
         images = np.repeat(images, 3, axis=-1)
     return DetectionFrames(images, boxes, classes, mask)
+
+
+def sequence_chunks(frames: DetectionFrames, seq_len: int = 50,
+                    require_gt: bool = True) -> List[DetectionFrames]:
+    """Chunk a frame stack into tail-re-anchored windows; keep only chunks
+    with ground truth when ``require_gt``."""
+    out = []
+    for (a, b) in chunked_windows(len(frames), seq_len):
+        chunk = DetectionFrames(frames.images[a:b], frames.boxes[a:b],
+                                frames.classes[a:b], frames.mask[a:b])
+        if require_gt and chunk.mask.sum() < 1:
+            continue
+        out.append(chunk)
+    return out
 
 
 def letterbox(images: np.ndarray, out_size: int,

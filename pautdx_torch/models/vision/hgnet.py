@@ -93,14 +93,14 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init from a ``torch.Generator`` on the parameters' device:
     every weight of rank >= 2 ~ N(0, 1/fan_in) (the scale of the
     reference's LeCun-normal init), every 1-d weight or scale 1, every
-    bias 0."""
+    bias 0 (a GRU's ``bias_ih_l0``/``bias_hh_l0`` too)."""
     gen = None
     for name, p in module.named_parameters():
         if p.dim() >= 2:
             if gen is None:
                 gen = torch.Generator(device=p.device).manual_seed(seed)
             p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
-        elif name.endswith("bias"):
+        elif name.rpartition(".")[2].startswith("bias"):
             p.zero_()
         else:
             p.fill_(1.0)

@@ -120,11 +120,12 @@ def build_serving_model(device: Optional[Union[str, torch.device]] = None,
     return ServingModel(model=model, cfg=cfg, batch=batch)
 
 
-def make_streaming_forward(model: DFine) -> Callable:
-    """``stream(slab)`` runs ``model`` over each (B, ...) micro-batch of a
-    (n_steps, B, ...) slab under ``torch.inference_mode()`` and returns the
-    last step's logits and boxes and a device flag that every step's
-    outputs were finite."""
+def make_streaming_forward(model: Callable) -> Callable:
+    """``stream(slab)`` runs ``model`` (a ``DFine``, or any callable that
+    returns its ``logits`` and ``pred_boxes``) over each (B, ...)
+    micro-batch of a (n_steps, B, ...) slab under
+    ``torch.inference_mode()`` and returns the last step's logits and
+    boxes and a device flag that every step's outputs were finite."""
 
     def stream(slab: torch.Tensor):
         with torch.inference_mode():

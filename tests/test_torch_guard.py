@@ -32,7 +32,7 @@ def test_importing_the_port_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(" ", 1)
-    assert int(n) >= 20
+    assert int(n) >= 52
     assert bad.strip() == "[]"
 
 
@@ -45,7 +45,7 @@ def test_port_sources_name_no_jax_import():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "pautdx_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 23
+    assert len(files) >= 54
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -60,8 +60,12 @@ def test_entry_points_raise_without_a_card():
     from pautdx_torch.compat.jax_weights import load_jax_variables
     from pautdx_torch.models.vision.dfine import DFine
     from pautdx_torch.models.vision.hgnet import HGNetV2
+    from pautdx_torch.models.vision.temporal_dfine import TemporalDFine
     from pautdx_torch.models.vision.yolo import YOLO
     from pautdx_torch.serve.endpoints import DetectorEndpoint
+    from pautdx_torch.serve.temporal_predict import (
+        build_temporal_model, temporal_serving_config,
+    )
     from pautdx_torch.serve.throughput import (
         build_serving_model, make_uint8_slab, serving_config,
     )
@@ -78,7 +82,9 @@ def test_entry_points_raise_without_a_card():
                  lambda: build_yolo_predictor(),
                  lambda: YOLO(yolo_serving_config()),
                  lambda: make_frame_slab(1, 2),
-                 lambda: DetectorEndpoint(lambda x: x)):
+                 lambda: DetectorEndpoint(lambda x: x),
+                 lambda: build_temporal_model(),
+                 lambda: TemporalDFine(temporal_serving_config())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
