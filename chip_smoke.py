@@ -3,9 +3,9 @@ holds each against its plain PyTorch version, then drives the D-FINE-nano
 640px serving path (the configuration of the root ``bench.py``), the
 YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step, the
 HF-architecture D-FINE 640px predict path, D-FINE-nano training from
-PAUT volumes and the temporal D-FINE serving path (50-frame sequences
-through the chunked runner and the frames bridge) through their entry
-points.
+PAUT volumes, the temporal D-FINE serving path (50-frame sequences
+through the chunked runner and the frames bridge) and the YOLOv9c-seg,
+YOLO11n and YOLOv5su 640px predict paths through their entry points.
 
     python3 chip_smoke.py
 
@@ -153,7 +153,22 @@ Phases, one line each, in order; any failure exits non-zero:
     result per frame, 12 launches), frames/s with the host-to-card copies;
     a 7-frame stack padded to 50; and a [2][640][640] JSON through
     ``serve.bridge.serve_frames``, answered in the {box, label, score}
-    schema.
+    schema;
+23. YOLOv9c-seg, YOLO11n and YOLOv5su (``serve.yolo_predict.yolo_config``,
+    one class, published widths and depths; served NMS: top 300 and 100
+    detections for v9c-seg, scores from 0.3, top 64 and 16 detections for
+    the other two) in f32 at batch 4, 640px: the network once, its
+    outputs post-processed once through the kernels and once through the
+    plain versions: identical detections, v9c-seg's masks within 1e-5;
+    one ``predict`` launches one NMS sweep and, for v9c-seg only, one mask
+    decode;
+24. the predict runs: v9c-seg over a (4, 32, 640, 640, 3) uint8 slab made
+    on the card, v11n and v5su over (2, 32, 640, 640, 3); counts the
+    launches, checks the outputs are finite, times frames/s through the
+    kernels and, in turns with it, through the plain versions, and records
+    the NMS sweep at the inputs each run gave it (K = 300 for v9c-seg,
+    K = 64 for v11n and v5su) and the mask decode at v9c-seg's, as phase
+    10 does.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -222,6 +237,12 @@ TEMPORAL_IMG = 640
 TEMPORAL_ANOMALY_TOL = 1e-4
 TEMPORAL_STEPS = 4        # phase 22: 50-frame chunks in the slab
 TEMPORAL_RUNNER_FRAMES = 170
+# phases 23-24: the other YOLO configurations, each predict run's
+# (n_steps, batch) and the (kernels, plain, plain, kernels) turns per run
+YOLO_FLAVOURS = ("yolov9c-seg", "yolo11n", "yolov5su")
+YOLO_FLAVOUR_SLABS = {"yolov9c-seg": (4, 32), "yolo11n": (2, 32),
+                      "yolov5su": (2, 32)}
+FLAVOUR_TURNS = 2
 
 
 def fail(msg: str) -> None:
@@ -482,6 +503,79 @@ def onehot_record(torch, dev, flat, idx, launches: int, name: str) -> dict:
         shape=f"flat {tuple(flat.shape)} {str(flat.dtype).split('.')[1]}, "
               f"idx {tuple(idx.shape)}, {rows} distinct rows, {nbytes} "
               f"bytes")
+
+
+def nms_record(torch, captured: dict, launches: int, name: str) -> dict:
+    """The NMS sweep kernel's record at the inputs a predict run gave it:
+    checked bit for bit against its plain version, timed beside it, its
+    bound the bytes this run's data needs."""
+    from pautdx_torch.ops import suppress
+
+    iou, valid, thr = captured["nms_suppress"]
+    got = suppress.nms_suppress(iou, valid, thr)
+    want = suppress.nms_suppress_reference(iou, valid, thr)
+    check(torch.equal(got, want), f"{name}: predict nms differs from plain")
+    Bn, Kn = valid.shape
+    # bytes this run's data needs: the part j > i of each row i that is
+    # still alive at its step (its final keep), valid read and keep written
+    alive = (want > 0).nonzero()[:, 1]
+    nbytes = 4 * int((Kn - 1 - alive).sum()) + 2 * 4 * Bn * Kn
+    return dict(
+        name=name, route="cuda", source="pautdx_torch/csrc/nms_suppress.cu",
+        replaces="pautdx/ops/pallas_nms.py:30",
+        launches=launches, max_abs_err=max_abs_err(got, want),
+        **kernel_times(
+            lambda: suppress.nms_suppress(iou, valid, thr),
+            lambda: suppress.nms_suppress_reference(iou, valid, thr)),
+        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        library_note="no single PyTorch call computes the greedy sweep "
+                     "over a precomputed IoU matrix (torchvision's nms "
+                     "takes boxes and is not part of PyTorch)",
+        shape=f"iou {tuple(iou.shape)} f32, {int(valid.sum())} valid, "
+              f"{int(want.sum())} kept, {nbytes} bytes needed of "
+              f"{iou.numel() * 4} ({Kn} candidates an image)")
+
+
+def masks_record(torch, dev, captured: dict, launches: int,
+                 name: str) -> dict:
+    """The mask decode kernel's record at the inputs a predict run gave
+    it: within ``MASK_TOL`` of its plain version, timed beside it, its
+    bound the larger of its bytes and the dot products inside the boxes."""
+    from pautdx_torch.ops import masks
+
+    protos, coeffs, mboxes, img_size = captured["assemble_masks"]
+    got = masks.assemble_masks(protos, coeffs, mboxes, img_size)
+    want = masks.assemble_masks_reference(protos, coeffs, mboxes, img_size)
+    err = max_abs_err(got, want)
+    check(err <= MASK_TOL, f"{name}: predict masks max |err| {err:.3g}")
+    Bm, Hp, Wp, P = protos.shape
+    nbytes = 4 * (protos.numel() + coeffs.numel() + mboxes.numel()
+                  + got.numel())
+    # the dot products this run's boxes need: one per pixel inside a box
+    sx, sy = Wp / img_size[1], Hp / img_size[0]
+    pb = mboxes * torch.tensor([sx, sy, sx, sy], device=dev)
+    cols = torch.arange(Wp, device=dev, dtype=torch.float32)
+    rows = torch.arange(Hp, device=dev, dtype=torch.float32)
+    in_x = ((cols >= pb[..., 0:1]) & (cols < pb[..., 2:3])).sum(-1)
+    in_y = ((rows >= pb[..., 1:2]) & (rows < pb[..., 3:4])).sum(-1)
+    flops = 2 * P * int((in_x * in_y).sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return dict(
+        name=name, route="cuda", source="pautdx_torch/csrc/assemble_masks.cu",
+        replaces="pautdx/ops/pallas_mask.py:33",
+        launches=launches, max_abs_err=err,
+        **kernel_times(
+            lambda: masks.assemble_masks(protos, coeffs, mboxes, img_size),
+            lambda: masks.assemble_masks_reference(protos, coeffs, mboxes,
+                                                   img_size)),
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_note="no single PyTorch call computes sigmoid(coeffs . "
+                     "protos) cropped to each box; a batched matmul leaves "
+                     "out the sigmoid and the crop",
+        shape=f"protos {tuple(protos.shape)}, coeffs {tuple(coeffs.shape)} "
+              f"f32 (protos contiguous: {protos.is_contiguous()}), {nbytes} "
+              f"bytes, {flops} FLOP inside the boxes")
 
 
 def max_abs_err(got, want) -> float:
@@ -1726,6 +1820,122 @@ def temporal_phases(torch, dev, counters: dict, wrappers: dict,
     return [record]
 
 
+def yolo_flavour_phases(torch, dev, counters: dict, wrappers: dict,
+                        none: dict) -> list:
+    """Phases 23-24: YOLOv9c-seg, YOLO11n and YOLOv5su at their published
+    widths and depths, one class, f32 (TF32 off) at 640px, each with its
+    served NMS settings; returns each run's NMS record and v9c-seg's
+    mask record."""
+    from pautdx_torch.serve.yolo_predict import (
+        IMG, build_yolo_predictor, make_frame_slab, make_yolo_stream,
+        measure_fps, postprocess, yolo_config,
+    )
+
+    # 23. each configuration, post-processed through kernels vs plain
+    predictors = {}
+    for name in YOLO_FLAVOURS:
+        cfg = yolo_config(name)
+        predictor = build_yolo_predictor(device=dev, seed=0, cfg=cfg)
+        predictors[name] = predictor
+        frames = make_frame_slab(1, 4, seed=23, device=dev)[0]
+        out = predictor.model(frames.to(torch.float32) / 255.0)
+        reset_counts(counters)
+        det_k = postprocess(out, (IMG, IMG), cfg)
+        torch.cuda.synchronize()
+        post_counts = launch_counts(counters)
+        with plain_kernels(wrappers):
+            det_p = postprocess(out, (IMG, IMG), cfg)
+        check(launch_counts(counters) == post_counts,
+              f"{name}: the plain post-process launched a kernel")
+        differ = [k for k in DETECTION_KEYS
+                  if not torch.equal(det_k[k], det_p[k])]
+        check(not differ, f"{name}: detections through the kernels differ "
+              f"from the plain versions' in {differ}")
+        # the served max_det: nms()'s 100 for seg, the CLI head's 16 else
+        max_det = 100 if cfg.seg else 16
+        check(tuple(det_k["boxes"].shape) == (4, max_det, 4)
+              and ("masks" in det_k) == cfg.seg,
+              f"{name}: outputs {sorted(det_k)}, boxes "
+              f"{tuple(det_k['boxes'].shape)}")
+        err = 0.0
+        if cfg.seg:
+            check(tuple(det_k["masks"].shape)
+                  == (4, max_det, IMG // 4, IMG // 4),
+                  f"{name}: masks {tuple(det_k['masks'].shape)}")
+            err = max_abs_err(det_k["masks"], det_p["masks"])
+            check(err <= MASK_TOL, f"{name}: masks differ by {err:.3g}")
+        reset_counts(counters)
+        det = predictor(frames)
+        torch.cuda.synchronize()
+        per_predict = launch_counts(counters)
+        want = dict(none, nms_suppress=1, assemble_masks=int(cfg.seg))
+        check(per_predict == want and post_counts == want,
+              f"{name}: one predict launched {per_predict}, want {want}")
+        check(all(torch.equal(det[k], det_k[k]) for k in det_k),
+              f"{name}: predict() differs from the model plus postprocess()")
+        n_params = sum(p.numel() for p in predictor.model.parameters())
+        print(f"[23 yolo {name}] {n_params} parameters, {IMG}px f32 "
+              f"batch 4, NMS "
+              f"{'top 300, 100' if cfg.seg else 'score 0.3, top 64, 16'} "
+              f"detections: kernels vs plain "
+              f"detections identical ({det['valid'].sum(1).tolist()} valid "
+              f"per frame)" + (f", masks max |err| {err:.3g}" if cfg.seg
+                               else ", no masks")
+              + f"; launches per predict: {per_predict}", flush=True)
+        del out, det_k, det_p, det
+
+    # 24. the predict runs
+    kernels = []
+    for name in YOLO_FLAVOURS:
+        predictor = predictors.pop(name)
+        seg = predictor.cfg.seg
+        steps, batch = YOLO_FLAVOUR_SLABS[name]
+        slab = make_frame_slab(steps, batch, seed=24, device=dev)
+        stream = make_yolo_stream(predictor)
+        stream(slab[:1])                   # warm-up: cuDNN plans, caches
+        torch.cuda.synchronize()
+        captured = {}
+        with first_inputs(wrappers, captured):
+            reset_counts(counters)
+            det, finite = stream(slab)
+            torch.cuda.synchronize()
+            counts = launch_counts(counters)
+        want = dict(none, nms_suppress=steps,
+                    assemble_masks=steps if seg else 0)
+        check(counts == want, f"{name} predict run launches {counts}, "
+              f"want {want}")
+        check(bool(finite), f"{name} predict outputs are not all finite")
+        fps = {"kernels": [], "plain": []}
+        for arm in ("kernels", "plain", "plain", "kernels") * FLAVOUR_TURNS:
+            if arm == "plain":
+                with plain_kernels(wrappers):
+                    fps[arm].append(measure_fps(stream, slab))
+            else:
+                fps[arm].append(measure_fps(stream, slab))
+        print(f"[24 yolo serving {name}] f32, uint8 slab "
+              f"{tuple(slab.shape)}: median "
+              f"{statistics.median(fps['kernels']):.1f} frames/s through "
+              f"the kernels {[round(f, 1) for f in fps['kernels']]}, median "
+              f"{statistics.median(fps['plain']):.1f} through the plain "
+              f"versions {[round(f, 1) for f in fps['plain']]} ({steps} x "
+              f"{batch} frames x 3 calls each, CUDA events, eager); "
+              f"launches over one slab: {counts}; outputs finite; "
+              f"{det['valid'].sum(1).tolist()} valid per frame in the last "
+              f"step", flush=True)
+        tag = name.replace("-", "_")
+        records = [nms_record(torch, captured, counts["nms_suppress"],
+                              f"nms_suppress_{tag}")]
+        if seg:
+            records.append(masks_record(torch, dev, captured,
+                                        counts["assemble_masks"],
+                                        f"assemble_masks_{tag}"))
+        for r in records:
+            print_record("24", r, "over the slab")
+        kernels += records
+        del predictor, slab, stream, captured, det
+    return kernels
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -2070,67 +2280,12 @@ def main() -> None:
 
     set_tf32(False)
 
-    # the NMS sweep at the inputs the predict run gave it
-    iou, valid, thr = captured["nms_suppress"]
-    got = suppress.nms_suppress(iou, valid, thr)
-    want = suppress.nms_suppress_reference(iou, valid, thr)
-    check(torch.equal(got, want), "predict nms differs from plain")
-    Bn, Kn = valid.shape
-    # bytes this run's data needs: the part j > i of each row i that is
-    # still alive at its step (its final keep), valid read and keep written
-    alive = (want > 0).nonzero()[:, 1]
-    nbytes = 4 * int((Kn - 1 - alive).sum()) + 2 * 4 * Bn * Kn
-    kernels.append(dict(
-        name="nms_suppress", route="cuda",
-        source="pautdx_torch/csrc/nms_suppress.cu",
-        replaces="pautdx/ops/pallas_nms.py:30",
-        launches=ycounts["nms_suppress"], max_abs_err=max_abs_err(got, want),
-        **kernel_times(
-            lambda: suppress.nms_suppress(iou, valid, thr),
-            lambda: suppress.nms_suppress_reference(iou, valid, thr)),
-        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_note="no single PyTorch call computes the greedy sweep "
-                     "over a precomputed IoU matrix (torchvision's nms "
-                     "takes boxes and is not part of PyTorch)",
-        shape=f"iou {tuple(iou.shape)} f32, {int(valid.sum())} valid, "
-              f"{int(want.sum())} kept, {nbytes} bytes needed of "
-              f"{iou.numel() * 4} ({Kn} candidates an image)"))
-
-    # the mask decode at the inputs the predict run gave it
-    protos, coeffs, mboxes, img_size = captured["assemble_masks"]
-    got = masks.assemble_masks(protos, coeffs, mboxes, img_size)
-    want = masks.assemble_masks_reference(protos, coeffs, mboxes, img_size)
-    err = max_abs_err(got, want)
-    check(err <= MASK_TOL, f"predict masks: max |err| {err:.3g}")
-    Bm, Hp, Wp, P = protos.shape
-    nbytes = 4 * (protos.numel() + coeffs.numel() + mboxes.numel()
-                  + got.numel())
-    # the dot products this run's boxes need: one per pixel inside a box
-    sx, sy = Wp / img_size[1], Hp / img_size[0]
-    pb = mboxes * torch.tensor([sx, sy, sx, sy], device=dev)
-    cols = torch.arange(Wp, device=dev, dtype=torch.float32)
-    rows = torch.arange(Hp, device=dev, dtype=torch.float32)
-    in_x = ((cols >= pb[..., 0:1]) & (cols < pb[..., 2:3])).sum(-1)
-    in_y = ((rows >= pb[..., 1:2]) & (rows < pb[..., 3:4])).sum(-1)
-    flops = 2 * P * int((in_x * in_y).sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    kernels.append(dict(
-        name="assemble_masks", route="cuda",
-        source="pautdx_torch/csrc/assemble_masks.cu",
-        replaces="pautdx/ops/pallas_mask.py:33",
-        launches=ycounts["assemble_masks"], max_abs_err=err,
-        **kernel_times(
-            lambda: masks.assemble_masks(protos, coeffs, mboxes, img_size),
-            lambda: masks.assemble_masks_reference(protos, coeffs, mboxes,
-                                                   img_size)),
-        bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_note="no single PyTorch call computes sigmoid(coeffs . "
-                     "protos) cropped to each box; a batched matmul leaves "
-                     "out the sigmoid and the crop",
-        shape=f"protos {tuple(protos.shape)}, coeffs {tuple(coeffs.shape)} "
-              f"f32 (protos contiguous: {protos.is_contiguous()}), {nbytes} "
-              f"bytes, {flops} FLOP inside the boxes"))
+    # the NMS sweep and the mask decode at the inputs the predict run gave
+    # them
+    kernels.append(nms_record(torch, captured, ycounts["nms_suppress"],
+                              "nms_suppress"))
+    kernels.append(masks_record(torch, dev, captured,
+                                ycounts["assemble_masks"], "assemble_masks"))
     for r in kernels[2:]:
         print_record("10", r, "over the slab")
     del predictor, yslab, ystream, captured, det
@@ -2168,6 +2323,7 @@ def main() -> None:
     volume_phase(torch, dev, counters, none)
     kernels += denoising_phase(torch, dev, counters, wrappers, none)
     kernels += temporal_phases(torch, dev, counters, wrappers, none)
+    kernels += yolo_flavour_phases(torch, dev, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

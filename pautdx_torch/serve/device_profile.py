@@ -2,13 +2,15 @@
 
     python -m pautdx_torch.serve.device_profile          # D-FINE serving
     python -m pautdx_torch.serve.device_profile yolo     # YOLOv8n-seg predict
+    python -m pautdx_torch.serve.device_profile yolo9c   # YOLOv9c-seg predict
     python -m pautdx_torch.serve.device_profile train    # D-FINE training
     python -m pautdx_torch.serve.device_profile hf       # HF D-FINE predict
     python -m pautdx_torch.serve.device_profile temporal # temporal D-FINE
 
 Builds the serving model of ``throughput.build_serving_model`` (an
 8 x 128-frame slab), the predictor of
-``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab), the f32
+``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab; YOLOv8n-seg,
+or ``yolo_config("yolov9c-seg")`` for ``yolo9c``), the f32
 predictor of ``dfine_predict.build_dfine_predictor`` (the HF-architecture
 D-FINE, a 4 x 32-frame slab), the temporal D-FINE v3 of
 ``temporal_predict.build_temporal_model`` (bf16, a 4 x 50-frame 640px
@@ -125,8 +127,10 @@ def _path(name: str, dev: torch.device
         stream = make_streaming_forward(served.model)
         slab = make_uint8_slab(served.slab_shape(8), seed=1, device=dev)
         return lambda: stream(slab), 8, 128, None
-    if name == "yolo":
-        predictor = yolo_predict.build_yolo_predictor(device=dev, seed=0)
+    if name in ("yolo", "yolo9c"):
+        config = "yolov8n-seg" if name == "yolo" else "yolov9c-seg"
+        predictor = yolo_predict.build_yolo_predictor(
+            device=dev, seed=0, cfg=yolo_predict.yolo_config(config))
         stream = yolo_predict.make_yolo_stream(predictor)
         slab = yolo_predict.make_frame_slab(4, 32, seed=1, device=dev)
         return lambda: stream(slab), 4, 32, None
@@ -146,8 +150,8 @@ def _path(name: str, dev: torch.device
         batch = make_train_batches(1, 16, seed=1)
         state = trainer.init(batch[0])
         return lambda: trainer.train_epoch(state, batch), 1, 16, None
-    raise ValueError(f"device_profile: no path {name!r}; dfine, yolo, hf, "
-                     f"temporal or train")
+    raise ValueError(f"device_profile: no path {name!r}; dfine, yolo, "
+                     f"yolo9c, hf, temporal or train")
 
 
 def main(path: str = "dfine") -> Dict:

@@ -1,14 +1,22 @@
-"""YOLOv8n-seg 640px predict path: frames in, detections and masks out.
+"""YOLO 640px predict paths: frames in, detections (and masks) out.
 
-The chain the JAX package runs for YOLO-seg predict (``pautdx/cli.py``'s
-YOLO head, ``tests/test_seg_eval.py``'s mask glue): ``YOLO`` ->
-``decode_boxes`` -> ``dense_to_detections`` (top-k, class-offset IoU, the
-greedy sweep on the ``nms_suppress`` kernel) -> the mask coefficients of
-the kept anchors -> ``assemble_masks`` (the mask kernel). The
-configuration is Ultralytics ``yolov8n-seg.yaml`` at its published width
-and depth with one class, as the reference's ``data-seg.yaml`` trains it:
-640x640 frames, 8,400 anchors, (B, 160, 160, 32) prototypes, NMS over the
-top 300 candidates down to 100 detections.
+The chain the JAX package runs for YOLO predict (``pautdx/cli.py``'s YOLO
+head, ``tests/test_seg_eval.py``'s mask glue): ``YOLO`` -> ``decode_boxes``
+-> ``dense_to_detections`` (top-k, class-offset IoU, the greedy sweep on
+the ``nms_suppress`` kernel) -> with ``seg``, the mask coefficients of the
+kept anchors -> ``assemble_masks`` (the mask kernel). Four configurations
+(:func:`yolo_config`), each at its published width and depth with one
+class, as the reference's ``data.yaml``/``data-seg.yaml`` train them, on
+640x640 frames (8,400 anchors):
+
+- ``yolov8n-seg`` (the default, :func:`yolo_serving_config`) and
+  ``yolov9c-seg``: (B, 160, 160, 32) prototypes, NMS over the top 300
+  candidates down to 100 detections, a mask each;
+- ``yolo11n`` and ``yolov5su``: boxes only, NMS at the CLI head's
+  settings (scores from 0.3, top 64, 16 detections).
+
+:func:`postprocess` picks the NMS settings from ``cfg.seg``, so a
+configuration is always served with its own.
 
 :func:`build_yolo_predictor` gives a :class:`YoloPredictor`, called on
 (B, H, W, 3) uint8 frames on its device. :func:`make_yolo_stream` runs it
@@ -22,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 from collections.abc import Mapping
 from contextlib import contextmanager
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -33,27 +41,62 @@ from pautdx_torch.ops import masks as mask_ops
 from pautdx_torch.ops.nms import dense_to_detections
 from pautdx_torch.serve.throughput import make_uint8_slab, measure_fps
 
-__all__ = ["IMG", "YoloPredictor", "build_yolo_predictor", "full_f32",
-           "make_frame_slab", "make_yolo_stream", "measure_fps",
-           "postprocess", "yolo_serving_config"]
+__all__ = ["CONFIGS", "IMG", "YoloPredictor", "build_yolo_predictor",
+           "full_f32", "make_frame_slab", "make_yolo_stream", "measure_fps",
+           "postprocess", "yolo_config",
+           "yolo_serving_config"]
 
 # frame side of the predict path: Ultralytics' default imgsz
 IMG = 640
 
 
+CONFIGS = {
+    # yolo8_seg_predict.py:3-9, the seg predictor
+    "yolov8n-seg": YoloConfig(num_classes=1, scale="n", flavour="v8",
+                              seg=True),
+    # yolo_seg_train.py:5-19, yolov9c-seg.pt
+    "yolov9c-seg": YoloConfig(num_classes=1, flavour="v9c", seg=True),
+    # yolo/yolo_bbox_retrain.py:6-18, yolo11n.pt
+    "yolo11n": YoloConfig(num_classes=1, scale="n", flavour="v11"),
+    # yolo5s_retrain.py:4-17, yolov5su.pt
+    "yolov5su": YoloConfig(num_classes=1, scale="s", flavour="v5"),
+}
+
+# the CLI's YOLO head (pautdx/cli.py, _build_detector_forward): its score
+# threshold, 64 candidates, 16 detections; the seg chains keep nms()'s
+# defaults (top 300, 100 detections)
+_CLI_NMS = {"score_threshold": 0.3, "top_k": 64, "max_det": 16}
+
+
+def yolo_config(name: str) -> YoloConfig:
+    """The :class:`YoloConfig` of one of ``CONFIGS``' names."""
+    if name not in CONFIGS:
+        raise ValueError(f"no YOLO configuration {name!r}; known: "
+                         f"{', '.join(CONFIGS)}")
+    return CONFIGS[name]
+
+
+def _served_nms(cfg: YoloConfig) -> Dict[str, Any]:
+    """The ``dense_to_detections`` keywords ``cfg`` is served with:
+    ``{}`` (nms()'s defaults) for the seg chains, the CLI head's for the
+    detectors."""
+    return {} if cfg.seg else dict(_CLI_NMS)
+
+
 def yolo_serving_config() -> YoloConfig:
     """YOLOv8n-seg, one class."""
-    return YoloConfig(num_classes=1, scale="n", flavour="v8", seg=True)
+    return CONFIGS["yolov8n-seg"]
 
 
-def postprocess(out: Dict, img_size: Tuple[int, int], cfg: YoloConfig
-                ) -> Dict[str, torch.Tensor]:
-    """The model's raw outputs -> {boxes, scores, classes, valid, indices,
-    masks}: dense decode, batched NMS at ``nms()``'s defaults and, with
-    ``cfg.seg``, the kept anchors' masks at proto resolution,
-    (B, 100, H/4, W/4)."""
+def postprocess(out: Dict, img_size: Tuple[int, int], cfg: YoloConfig,
+                **nms_kw) -> Dict[str, torch.Tensor]:
+    """The model's raw outputs -> {boxes, scores, classes, valid, indices}
+    and, with ``cfg.seg``, {masks}: dense decode, batched NMS at ``cfg``'s
+    served settings with ``nms_kw`` (``dense_to_detections``' keywords)
+    over them, and the kept anchors' masks at proto resolution,
+    (B, max_det, H/4, W/4)."""
     d = decode_boxes(out, img_size, cfg)
-    det = dense_to_detections(d)
+    det = dense_to_detections(d, **{**_served_nms(cfg), **nms_kw})
     if cfg.seg:
         coeffs = torch.take_along_dim(d["coeffs"], det["indices"][..., None],
                                       dim=1)
@@ -84,18 +127,19 @@ def full_f32():
 class YoloPredictor:
     model: YOLO
     cfg: YoloConfig
+    nms_kw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) float images in [0, 1], any strides -> detections
-        and masks, in full f32 whatever the global TF32 settings."""
+        (and masks), in full f32 whatever the global TF32 settings."""
         with full_f32():
             return postprocess(self.model(images), tuple(images.shape[1:3]),
-                               self.cfg)
+                               self.cfg, **self.nms_kw)
 
     def __call__(self, frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) uint8 frames on the model's device, rescaled by
-        1/255 -> detections and masks."""
+        1/255 -> detections (and masks)."""
         if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4:
             raise TypeError(f"predict: want (B, H, W, 3) uint8 frames, got "
                             f"{frames_u8.dtype} {tuple(frames_u8.shape)}")
@@ -104,16 +148,20 @@ class YoloPredictor:
 
 def build_yolo_predictor(variables: Optional[Mapping] = None,
                          device: Optional[Union[str, torch.device]] = None,
-                         seed: int = 0) -> YoloPredictor:
-    """YOLOv8n-seg in f32 on ``device`` (default ``"cuda"``), TF32 off in
-    every call (:func:`full_f32`): the JAX package's ``variables`` loaded
-    strictly when given, else a seeded init."""
+                         seed: int = 0, cfg: Optional[YoloConfig] = None,
+                         **nms_kw) -> YoloPredictor:
+    """``cfg`` (default YOLOv8n-seg) in f32 on ``device`` (default
+    ``"cuda"``), TF32 off in every call (:func:`full_f32`), NMS at
+    ``cfg``'s served settings with ``nms_kw`` over them (see
+    :func:`postprocess`): the JAX package's ``variables`` loaded strictly when
+    given, else a seeded init. An Ultralytics state dict loads afterwards
+    through ``compat.yolo_import.load_ultralytics_state_dict``."""
     dev = resolve_device(device)
-    cfg = yolo_serving_config()
+    cfg = yolo_serving_config() if cfg is None else cfg
     model = YOLO(cfg, device=dev, seed=seed)
     if variables is not None:
         load_jax_variables(model, variables, device=dev)
-    return YoloPredictor(model=model, cfg=cfg)
+    return YoloPredictor(model=model, cfg=cfg, nms_kw=nms_kw)
 
 
 def make_frame_slab(n_steps: int, batch: int, seed: int = 0,
@@ -128,10 +176,10 @@ def make_frame_slab(n_steps: int, batch: int, seed: int = 0,
 def make_yolo_stream(predict: Callable) -> Callable:
     """``stream(slab)`` runs ``predict`` over each (B, H, W, 3) micro-batch
     of a (n_steps, B, H, W, 3) slab and returns the last step's outputs
-    and a device flag that every step's boxes, scores and masks were
-    finite. The masks, the largest output, are checked through their sum
-    in one read: masks lie in [0, 1], so the sum is finite exactly when
-    every mask value is."""
+    and a device flag that every step's boxes, scores and, where the model
+    makes them, masks were finite. The masks, the largest output, are
+    checked through their sum in one read: masks lie in [0, 1], so the sum
+    is finite exactly when every mask value is."""
 
     def stream(slab: torch.Tensor):
         finite = torch.ones((), dtype=torch.bool, device=slab.device)
@@ -139,8 +187,9 @@ def make_yolo_stream(predict: Callable) -> Callable:
         for step in range(slab.shape[0]):
             out = predict(slab[step])
             finite &= (torch.isfinite(out["boxes"]).all()
-                       & torch.isfinite(out["scores"]).all()
-                       & torch.isfinite(out["masks"].sum()))
+                       & torch.isfinite(out["scores"]).all())
+            if "masks" in out:
+                finite &= torch.isfinite(out["masks"].sum())
         return out, finite
 
     return stream

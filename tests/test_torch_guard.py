@@ -70,7 +70,8 @@ def test_entry_points_raise_without_a_card():
         build_serving_model, make_uint8_slab, serving_config,
     )
     from pautdx_torch.serve.yolo_predict import (
-        build_yolo_predictor, make_frame_slab, yolo_serving_config,
+        build_yolo_predictor, make_frame_slab, yolo_config,
+        yolo_serving_config,
     )
 
     for call in (lambda: resolve_device(),
@@ -80,7 +81,9 @@ def test_entry_points_raise_without_a_card():
                  lambda: HGNetV2(serving_config().backbone),
                  lambda: load_jax_variables(torch.nn.Linear(2, 2), {}),
                  lambda: build_yolo_predictor(),
+                 lambda: build_yolo_predictor(cfg=yolo_config("yolo11n")),
                  lambda: YOLO(yolo_serving_config()),
+                 lambda: YOLO(yolo_config("yolov9c-seg")),
                  lambda: make_frame_slab(1, 2),
                  lambda: DetectorEndpoint(lambda x: x),
                  lambda: build_temporal_model(),

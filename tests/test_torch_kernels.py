@@ -593,3 +593,40 @@ def test_yolo_predict_takes_any_layout_and_owns_its_precision(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
     for k in ("boxes", "scores", "classes", "valid", "indices", "masks"):
         assert torch.equal(loose[k], dense[k]), k
+
+
+@pytest.mark.parametrize("name", ["yolov9c-seg", "yolo11n", "yolov5su"])
+def test_yolo_flavour_postprocess_matches_plain(cuda, name, monkeypatch):
+    """Each YOLO configuration's post-process at 640px, batch 2, with its
+    served NMS settings: through the kernels, then through the plain
+    versions on the same raw outputs, identical detections and masks
+    within 1e-5; one NMS sweep and, for seg only, one mask decode."""
+    from pautdx_torch.serve import yolo_predict
+
+    cfg = yolo_predict.yolo_config(name)
+    predictor = yolo_predict.build_yolo_predictor(device=cuda, seed=1,
+                                                  cfg=cfg)
+    frames = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (2, 640, 640, 3)).astype(np.uint8)).to(cuda)
+    with yolo_predict.full_f32():
+        out = predictor.model(frames.float() / 255.0)
+    before = (suppress.LAUNCHES, masks.LAUNCHES)
+    got = yolo_predict.postprocess(out, (640, 640), cfg)
+    assert (suppress.LAUNCHES, masks.LAUNCHES) == (before[0] + 1,
+                                                    before[1] + cfg.seg)
+    monkeypatch.setattr(suppress, "nms_suppress",
+                        suppress.nms_suppress_reference)
+    monkeypatch.setattr(masks, "assemble_masks",
+                        masks.assemble_masks_reference)
+    want = yolo_predict.postprocess(out, (640, 640), cfg)
+    assert set(got) == set(want)
+    assert ("masks" in got) == cfg.seg
+    # the served max_det: nms()'s 100 for seg, the CLI head's 16 else
+    assert got["boxes"].shape == (2, 100 if cfg.seg else 16, 4)
+    assert got["valid"].any()
+    for k in ("boxes", "scores", "classes", "valid", "indices"):
+        assert torch.equal(got[k], want[k]), k
+    if cfg.seg:
+        assert got["masks"].shape == (2, 100, 160, 160)
+        torch.testing.assert_close(got["masks"], want["masks"], atol=1e-5,
+                                   rtol=0)

@@ -105,9 +105,9 @@ def test_width_matches_ultralytics_yaml_tables():
                                        flavour=flavour).width(w)
 
 
-@pytest.mark.parametrize("flavour", ["v5", "v9c", "v11"])
-def test_other_flavours_raise(flavour):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flavour", ["v9", "v5u", "yolo11"])
+def test_unknown_flavour_raises(flavour):
+    with pytest.raises(ValueError, match="known: v8, v5, v9c, v11"):
         tyolo.YOLO(tyolo.YoloConfig(flavour=flavour), device="cpu")
 
 
