@@ -4,8 +4,9 @@ holds each against its plain PyTorch version, then drives the D-FINE-nano
 YOLOv8n-seg 640px predict path, the D-FINE-nano 640px training step, the
 HF-architecture D-FINE 640px predict path, D-FINE-nano training from
 PAUT volumes, the temporal D-FINE serving path (50-frame sequences
-through the chunked runner and the frames bridge) and the YOLOv9c-seg,
-YOLO11n and YOLOv5su 640px predict paths through their entry points.
+through the chunked runner and the frames bridge), the YOLOv9c-seg,
+YOLO11n and YOLOv5su 640px predict paths, YOLO training and temporal
+D-FINE training through their entry points.
 
     python3 chip_smoke.py
 
@@ -168,7 +169,37 @@ Phases, one line each, in order; any failure exits non-zero:
     kernels and, in turns with it, through the plain versions, and records
     the NMS sweep at the inputs each run gave it (K = 300 for v9c-seg,
     K = 64 for v11n and v5su) and the mask decode at v9c-seg's, as phase
-    10 does.
+    10 does;
+25. YOLO training: one train-mode ``ConvBnSiLU`` on the card moves its
+    running mean by 0.03 of the batch mean (momentum 0.97); one b2 128px
+    f32 step of each of YOLOv8n-seg, YOLOv9c-seg, YOLO11n and YOLOv5su
+    (two classes, seeded weights, box masks for the seg models) on the
+    card under deterministic algorithms, TF32 off, and the same step on
+    the CPU in f32 and in float64: the card's task-aligned assignment
+    equals the CPU's, and its loss, gradient and BN statistics lie within
+    1e-4 (relative), 1e-3 (relative, in norm) and 1e-5 of the float64
+    step's, each limit raised to twice the CPU f32 step's own error where
+    that is larger (the deep unscaled v9c-seg rounds to 1e-5 in its BN
+    statistics); no kernel launches; the timed YOLOv8n-seg run at 640px
+    b16 f32 with ``rasterize_boxes`` masks (the loss falls over 20 steps
+    on one batch; median ms/step of six turns; peak memory); one epoch of
+    ``train_bscan_detector(detector="yolo", seg=True)`` over phase 19's
+    volumes, then ``YoloPredictor`` on 64 of their frames: box and mask
+    mAP@0.5 in [0, 1], one NMS sweep and one mask decode a predict;
+26. temporal D-FINE training over a seeded ``dfine_nano`` trunk
+    checkpoint, on the sequences of the harness's first two temporal
+    volumes at 640px (``train.temporal.make_temporal_dataset``): one v3
+    step at T = 50 through the kernels and through the plain versions
+    (the same dropout masks), at phase 20's rule: the loss within 1e-4,
+    the gradient within 1e-3 as a whole and each leaf within the larger
+    of 1e-3 and twice what reordering the plain gather's taps moves it;
+    then 20 steps of each of v1, v2 and v3 (``build_temporal_trainer``,
+    the recipe's groups and schedule), kernels and plain versions in
+    turns: every loss finite, the frozen parameters and the trunk's BN
+    statistics unchanged bit for bit, launches a step (3 weighted
+    gathers, and 3 backwards for v3 only), ms/step and peak memory; the
+    records of the weighted gather and its backward at the v3 step's
+    inputs, (50, 2000, 128) x (1200, 4).
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -243,6 +274,16 @@ YOLO_FLAVOURS = ("yolov9c-seg", "yolo11n", "yolov5su")
 YOLO_FLAVOUR_SLABS = {"yolov9c-seg": (4, 32), "yolo11n": (2, 32),
                       "yolov5su": (2, 32)}
 FLAVOUR_TURNS = 2
+# phase 25: the configurations of the card-vs-CPU step, its frame side, and
+# the steps on one batch whose loss must fall
+YOLO_TRAIN_NAMES = ("yolov8n-seg", "yolov9c-seg", "yolo11n", "yolov5su")
+YOLO_CHECK_IMG = 128
+YOLO_TRAIN_LOSS_STEPS = 20
+# phase 26: the harness's first two temporal train volumes, the steps of
+# each variant and the steps of a timed turn
+TEMPORAL_TRAIN_SEEDS = range(200, 202)
+TEMPORAL_TRAIN_STEPS = 20
+TEMPORAL_TURN = 4
 
 
 def fail(msg: str) -> None:
@@ -767,24 +808,30 @@ def global_grad_error(got: dict, want: dict) -> float:
 
 def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
                batch: dict, size: int):
-    """Phase 12's check of one training step, for phases 12 and 20:
+    """Phase 12's check of one training step, for phases 12, 20 and 26:
     ``kernels_vs_plain(cfg, want_counts, reorderings=None,
-    denoising=None, captured=None, phase="12")`` runs one step of ``cfg``
-    on ``batch`` through the kernels and one through the plain versions
-    from the same weights (and the same denoising group, if given), under
+    denoising=None, captured=None, phase="12", model=None, objective=None,
+    forward=None, what=None)`` runs one step of ``cfg`` on ``batch``
+    through the kernels and one through the plain versions from the same
+    weights (and the same denoising group, if given), under
     :func:`deterministic`, applies phase 12's gates, prints them and
     returns the model; ``captured`` keeps the kernel step's first inputs
-    of each wrapper."""
+    of each wrapper. ``model``, ``objective`` and ``forward(model)`` stand
+    in for ``DFine(cfg)``, ``dfine_objective`` and its training forward
+    (phase 26's temporal model), ``what`` names the step."""
     from pautdx_torch.models.vision.dfine import DFine
     from pautdx_torch.ops import gather
     from pautdx_torch.train.detector import dfine_objective
 
-    def model_step(model, objective, start, denoising=None) -> tuple:
+    def model_step(model, objective, start, denoising=None,
+                   forward=None) -> tuple:
         """The loss and the gradients of one step from ``start``, through
         whatever the wrappers are now."""
         model.load_state_dict(start)
         model.zero_grad(set_to_none=True)
-        if denoising is None:
+        if forward is not None:
+            out = forward(model)
+        elif denoising is None:
             out = model(batch["images"], train=True)
         else:
             out = model(batch["images"], train=True, denoising=denoising)
@@ -797,18 +844,21 @@ def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
             for n, p in model.named_parameters()}
 
     def one_step(model, objective, start, plain: bool, denoising,
-                 captured):
+                 captured, forward=None):
         reset_counts(counters)
         with (plain_kernels(wrappers) if plain
               else first_inputs(wrappers, captured) if captured is not None
               else nullcontext()):
-            loss, grads = model_step(model, objective, start, denoising)
+            loss, grads = model_step(model, objective, start, denoising,
+                                     forward)
         return (loss, grads,
                 {k: v.clone() for k, v in model.named_buffers()},
                 launch_counts(counters))
 
     def kernels_vs_plain(cfg, want_counts: dict, reorderings=None,
-                         denoising=None, captured=None, phase="12"):
+                         denoising=None, captured=None, phase="12",
+                         model=None, objective=None, forward=None,
+                         what=None):
         """One step of ``cfg`` through the kernels and one through the
         plain versions: the checks of phase 12 and what they read. With
         ``reorderings`` ({what: wrappers to the plain versions summing in
@@ -818,23 +868,25 @@ def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
         of these moves, the 1e-3 holding for the gradient as a whole and
         as the floor of every leaf; one more kernel step prints how far
         the kernels' own order moves them from run to run."""
-        model = DFine(cfg, device=dev, seed=0)
-        objective = dfine_objective(size, cfg)
+        model = DFine(cfg, device=dev, seed=0) if model is None else model
+        objective = objective or dfine_objective(size, cfg)
         start = {k: v.clone() for k, v in model.state_dict().items()}
+        if what is None:
+            what = f"decoder_method={cfg.decoder_method!r}"
+            if denoising is not None:
+                what += (f" with {denoising['class_ids'].shape[1]} "
+                         f"denoising queries")
         with deterministic():
-            return checked_step(model, objective, start, cfg, want_counts,
-                                reorderings, denoising, captured, phase)
+            return checked_step(model, objective, start, want_counts,
+                                reorderings, denoising, captured, phase,
+                                forward, what)
 
-    def checked_step(model, objective, start, cfg, want_counts,
-                     reorderings, denoising, captured, phase):
+    def checked_step(model, objective, start, want_counts, reorderings,
+                     denoising, captured, phase, forward, what):
         loss_k, grads_k, bufs_k, counts_k = one_step(
-            model, objective, start, False, denoising, captured)
+            model, objective, start, False, denoising, captured, forward)
         loss_p, grads_p, bufs_p, counts_p = one_step(
-            model, objective, start, True, denoising, None)
-        what = f"decoder_method={cfg.decoder_method!r}"
-        if denoising is not None:
-            what += (f" with {denoising['class_ids'].shape[1]} denoising "
-                     f"queries")
+            model, objective, start, True, denoising, None, forward)
         check(counts_k == dict(none, **want_counts),
               f"{what}: one training step launched {counts_k}, want "
               f"{want_counts}")
@@ -858,13 +910,15 @@ def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
                         dict.fromkeys(reordered, gather),
                         lambda name, mod, fn: reordered[name]):
                     moved = leaf_errors(model_step(model, objective, start,
-                                                   denoising)[1], grads_p)
+                                                   denoising, forward)[1],
+                                        grads_p)
                 spread = {n: max(e, spread.get(n, 0.0))
                           for n, e in moved.items()}
             # the kernel step once more: how far its own sums' order moves
             # it from run to run (printed, not gated)
             rerun = leaf_errors(one_step(model, objective, start, False,
-                                         denoising, None)[1], grads_k)
+                                         denoising, None, forward)[1],
+                                grads_k)
             errs = leaf_errors(grads_k, grads_p)
             limit = {n: max(TRAIN_GRAD_TOL, 2 * spread[n]) for n in errs}
             over = {n: (e, limit[n]) for n, e in errs.items()
@@ -888,7 +942,8 @@ def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
         bn_err = max(max_abs_err(bufs_k[k], bufs_p[k]) for k in bufs_p)
         check(bn_err <= 1e-5, f"{what}: BN running statistics differ by "
               f"{bn_err:.3g}")
-        print(f"[{phase} train model] {what}, 640px f32 batch 4, TF32 off: "
+        print(f"[{phase} train model] {what}, 640px f32 batch "
+              f"{batch['images'].shape[0]}, TF32 off: "
               f"loss through the kernels {loss_k:.6f}, plain {loss_p:.6f} "
               f"(relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}); "
               f"{grads_note}; noise-level leaves within {noise:.3g} "
@@ -899,12 +954,13 @@ def step_check(torch, dev, counters: dict, wrappers: dict, none: dict,
     return kernels_vs_plain
 
 
-def gather_records(torch, dev, captured: dict, dcaptured: dict,
-                   counts: dict, dcounts: dict, suffix: str = "") -> list:
+def gather_records(torch, dev, captured: dict, dcaptured, counts: dict,
+                   dcounts, suffix: str = "") -> list:
     """The records of the weighted gather, its backward and the one-hot
     gather's backward at the inputs that training steps gave them
     (``captured`` from a bilinear step, ``dcaptured`` from a discrete one,
-    each with its launch counts), each beside its plain version and its
+    each with its launch counts; without a discrete step, ``dcaptured``
+    None, no one-hot record), each beside its plain version and its
     library call; the names carry ``suffix``. Checks the kernels against
     the plain versions at those inputs (relative to the largest
     magnitude, ``GATHER_TOL``)."""
@@ -916,19 +972,22 @@ def gather_records(torch, dev, captured: dict, dcaptured: dict,
     _, _, _, g = (t.detach() for t in captured["weighted_gather_backward"])
     B, L, C = flat.shape
     T, K = idx.shape[1:]
-    og, oidx, oL = dcaptured["onehot_gather_backward"]
-    og, oidx = og.detach(), oidx.detach()
     with torch.no_grad():
         got = gather.weighted_gather(flat, idx, w)
         want = gather.weighted_gather_reference(flat, idx, w)
         d_got = gather.weighted_gather_backward(flat, idx, w, g)
         d_want = gather.weighted_gather_backward_reference(flat, idx, w, g)
-        o_got = gather.onehot_gather_backward(og, oidx, oL)
-        o_want = gather.onehot_gather_backward_reference(og, oidx, oL)
-    rel = (within(got, want), within(d_got[0], d_want[0]),
-           within(d_got[1], d_want[1]), within(o_got, o_want))
+    rel = [within(got, want), within(d_got[0], d_want[0]),
+           within(d_got[1], d_want[1])]
+    if dcaptured is not None:
+        og, oidx, oL = dcaptured["onehot_gather_backward"]
+        og, oidx = og.detach(), oidx.detach()
+        with torch.no_grad():
+            o_got = gather.onehot_gather_backward(og, oidx, oL)
+            o_want = gather.onehot_gather_backward_reference(og, oidx, oL)
+        rel.append(within(o_got, o_want))
     check(max(rel) <= GATHER_TOL, f"training-step gather{suffix} relative "
-          f"errors (out, d_flat, d_w, one-hot d_flat) {rel}")
+          f"errors (out, d_flat, d_w[, one-hot d_flat]) {rel}")
     fwd_err = max_abs_err(got, want)
     bwd_err = max(max_abs_err(d_got[0], d_want[0]),
                   max_abs_err(d_got[1], d_want[1]))
@@ -951,45 +1010,48 @@ def gather_records(torch, dev, captured: dict, dcaptured: dict,
     w_r = bag_w.clone().requires_grad_()
     bag_out = bag(tab_r, w_r)
     bag_g = g.reshape(B * T, C)
-    # F.embedding over the clipped rows of all frames: its backward is the
-    # one-hot gather's
-    Bo, To, Co = og.shape
-    o_rows = (oidx.long().clamp(0, oL - 1)
-              + oL * torch.arange(Bo, device=dev)[:, None])
-    emb_table = torch.zeros((Bo * oL, Co), device=dev, requires_grad=True)
-    emb_out = F.embedding(o_rows, emb_table)
+    kernels = [
+        ("weighted_gather", 134, fwd_err,
+         table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
+         lambda: gather.weighted_gather(flat, idx, w),
+         lambda: gather.weighted_gather_reference(flat, idx, w),
+         lambda: bag(table, bag_w),
+         f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+         f"{rows.numel()} distinct rows of {B * L}; library: "
+         f"embedding_bag over bags of {K}"),
+        ("weighted_gather_backward", 196, bwd_err,
+         out_bytes + table_bytes + tap_bytes + B * L * C * 4
+         + idx.numel() * 4, 4 * K * C * B * T,
+         lambda: gather.weighted_gather_backward(flat, idx, w, g),
+         lambda: gather.weighted_gather_backward_reference(
+             flat, idx, w, g),
+         lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
+                                     retain_graph=True),
+         f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
+         f"{rows.numel()} distinct rows of {B * L}; library: "
+         f"embedding_bag's backward to both inputs")]
+    if dcaptured is not None:
+        # F.embedding over the clipped rows of all frames: its backward is
+        # the one-hot gather's
+        Bo, To, Co = og.shape
+        o_rows = (oidx.long().clamp(0, oL - 1)
+                  + oL * torch.arange(Bo, device=dev)[:, None])
+        emb_table = torch.zeros((Bo * oL, Co), device=dev,
+                                requires_grad=True)
+        emb_out = F.embedding(o_rows, emb_table)
+        kernels.append((
+            "onehot_gather_backward", 107, max_abs_err(o_got, o_want),
+            og.numel() * 4 + Bo * oL * Co * 4 + oidx.numel() * 4,
+            Bo * To * Co,
+            lambda: gather.onehot_gather_backward(og, oidx, oL),
+            lambda: gather.onehot_gather_backward_reference(og, oidx, oL),
+            lambda: torch.autograd.grad(emb_out, emb_table, og,
+                                        retain_graph=True),
+            f"g {tuple(og.shape)} f32, idx {tuple(oidx.shape)}, L {oL}, "
+            f"{torch.unique(o_rows).numel()} distinct rows of {Bo * oL}; "
+            f"library: F.embedding's backward"))
     records = []
-    for name, line, err, nbytes, flops, fn, plain, library, shape in (
-            ("weighted_gather", 134, fwd_err,
-             table_bytes + tap_bytes + out_bytes, 2 * K * C * B * T,
-             lambda: gather.weighted_gather(flat, idx, w),
-             lambda: gather.weighted_gather_reference(flat, idx, w),
-             lambda: bag(table, bag_w),
-             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-             f"{rows.numel()} distinct rows of {B * L}; library: "
-             f"embedding_bag over bags of {K}"),
-            ("weighted_gather_backward", 196, bwd_err,
-             out_bytes + table_bytes + tap_bytes + B * L * C * 4
-             + idx.numel() * 4, 4 * K * C * B * T,
-             lambda: gather.weighted_gather_backward(flat, idx, w, g),
-             lambda: gather.weighted_gather_backward_reference(
-                 flat, idx, w, g),
-             lambda: torch.autograd.grad(bag_out, (tab_r, w_r), bag_g,
-                                         retain_graph=True),
-             f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-             f"{rows.numel()} distinct rows of {B * L}; library: "
-             f"embedding_bag's backward to both inputs"),
-            ("onehot_gather_backward", 107,
-             max_abs_err(o_got, o_want),
-             og.numel() * 4 + Bo * oL * Co * 4 + oidx.numel() * 4,
-             Bo * To * Co,
-             lambda: gather.onehot_gather_backward(og, oidx, oL),
-             lambda: gather.onehot_gather_backward_reference(og, oidx, oL),
-             lambda: torch.autograd.grad(emb_out, emb_table, og,
-                                         retain_graph=True),
-             f"g {tuple(og.shape)} f32, idx {tuple(oidx.shape)}, L {oL}, "
-             f"{torch.unique(o_rows).numel()} distinct rows of {Bo * oL}; "
-             f"library: F.embedding's backward")):
+    for name, line, err, nbytes, flops, fn, plain, library, shape in kernels:
         parts = {}
         with torch.no_grad() if name == "weighted_gather" else nullcontext():
             t_ms = device_ms(fn, parts=parts)
@@ -1496,23 +1558,14 @@ def hf_phases(torch, dev, gen, counters: dict, wrappers: dict,
     return records
 
 
-def volume_phase(torch, dev, counters: dict, none: dict) -> None:
-    """Phase 19: four harness volumes written as JSON and as txt trees,
-    parsed, rendered on the card and on the CPU, trained on for one epoch
-    through ``train_bscan_detector`` with the EMA, and the EMA evaluated
-    in the accuracy harness's arms."""
+def write_volumes(data_dir: str) -> list:
+    """The accuracy harness's volumes of ``VOLUME_SEEDS``, the first two
+    written into ``data_dir`` as JSON, the other two as txt trees, and
+    each parsed back."""
     from pautdx_torch.data import synthetic
-    from pautdx_torch.data.bscan import render_bscans
-    from pautdx_torch.data.vision import detection_frames_from_volume
     from pautdx_torch.data.volume import parse_json_volume, parse_txt_tree
     from pautdx_torch.eval import accuracy
-    from pautdx_torch.train.checkpoint import CheckpointManager
-    from pautdx_torch.train.detector import train_bscan_detector
-    from pautdx_torch.train.trainer import Trainer
 
-    root = os.path.join(HERE, "build", "chip_smoke_volumes")
-    data_dir, ckpt_dir = (os.path.join(root, d) for d in ("data", "ckpt"))
-    shutil.rmtree(root, ignore_errors=True)
     os.makedirs(data_dir)
     vols = []
     for i, (spec, defects) in enumerate(accuracy.harness_volumes(
@@ -1525,6 +1578,25 @@ def volume_phase(torch, dev, counters: dict, none: dict) -> None:
             synthetic.write_txt_tree(data_dir, spec, defects,
                                      file_folder=f"vol{i}")
             vols.append(parse_txt_tree(data_dir, f"vol{i}"))
+    return vols
+
+
+def volume_phase(torch, dev, counters: dict, none: dict) -> None:
+    """Phase 19: four harness volumes written as JSON and as txt trees,
+    parsed, rendered on the card and on the CPU, trained on for one epoch
+    through ``train_bscan_detector`` with the EMA, and the EMA evaluated
+    in the accuracy harness's arms."""
+    from pautdx_torch.data.bscan import render_bscans
+    from pautdx_torch.data.vision import detection_frames_from_volume
+    from pautdx_torch.eval import accuracy
+    from pautdx_torch.train.checkpoint import CheckpointManager
+    from pautdx_torch.train.detector import train_bscan_detector
+    from pautdx_torch.train.trainer import Trainer
+
+    root = os.path.join(HERE, "build", "chip_smoke_volumes")
+    data_dir, ckpt_dir = (os.path.join(root, d) for d in ("data", "ckpt"))
+    shutil.rmtree(root, ignore_errors=True)
+    vols = write_volumes(data_dir)
     img_err, frames = 0.0, []
     for vol in vols:
         card, host = (detection_frames_from_volume(
@@ -1838,7 +1910,8 @@ def yolo_flavour_phases(torch, dev, counters: dict, wrappers: dict,
         predictor = build_yolo_predictor(device=dev, seed=0, cfg=cfg)
         predictors[name] = predictor
         frames = make_frame_slab(1, 4, seed=23, device=dev)[0]
-        out = predictor.model(frames.to(torch.float32) / 255.0)
+        with torch.no_grad():
+            out = predictor.model(frames.to(torch.float32) / 255.0)
         reset_counts(counters)
         det_k = postprocess(out, (IMG, IMG), cfg)
         torch.cuda.synchronize()
@@ -1934,6 +2007,368 @@ def yolo_flavour_phases(torch, dev, counters: dict, wrappers: dict,
         kernels += records
         del predictor, slab, stream, captured, det
     return kernels
+
+
+def yolo_train_phase(torch, dev, counters: dict, none: dict) -> None:
+    """Phase 25: YOLO training on the card: the BatchNorm momentum, one
+    step of each configuration on the card against the same step on the
+    CPU, the timed YOLOv8n-seg b16 run, and one epoch of
+    ``train_bscan_detector(detector="yolo")`` over phase 19's volumes with
+    the trained model's box and mask mAP@0.5."""
+    import copy
+
+    from pautdx_torch.data.vision import detection_frames_from_volume
+    from pautdx_torch.eval.map import evaluate_map
+    from pautdx_torch.eval.seg import evaluate_mask_map
+    from pautdx_torch.losses.yolo import task_aligned_assign
+    from pautdx_torch.models.vision.yolo import (YOLO, ConvBnSiLU,
+                                                 decode_boxes)
+    from pautdx_torch.serve.yolo_predict import YoloPredictor, yolo_config
+    from pautdx_torch.train.detector import (
+        LR, NUM_CLASSES, add_box_masks, make_train_batches,
+        train_bscan_detector, yolo_objective,
+    )
+    from pautdx_torch.train.optim import make_optimizer
+    from pautdx_torch.train.trainer import Trainer
+
+    # (a) the BatchNorm's running mean moves by 0.03 of the batch's
+    conv = ConvBnSiLU(3, 5, 3).to(dev).train()
+    x = torch.randn((4, 3, 8, 8), device=dev) * 2.0 + 1.0
+    with torch.no_grad():
+        batch_mean = conv.conv(x).mean((0, 2, 3))
+        conv(x)
+    bn_err = max_abs_err(conv.bn.running_mean, 0.03 * batch_mean)
+    check(bn_err <= 1e-6, f"YOLO BatchNorm: running mean off 0.03 x the "
+          f"batch mean by {bn_err:.3g}")
+    print(f"[25 yolo bn] ConvBnSiLU(3, 5, 3) in train mode on the card: the "
+          f"running mean moved by 0.03 of the batch mean (max |err| "
+          f"{bn_err:.3g}, batch mean up to "
+          f"{batch_mean.abs().max().item():.3g})", flush=True)
+
+    # (b) one step of each configuration, card against CPU
+    size = YOLO_CHECK_IMG
+    batch = make_train_batches(1, 2, size, seed=25)[0]
+    found = []
+    for name in YOLO_TRAIN_NAMES:
+        cfg = dataclasses.replace(yolo_config(name), num_classes=NUM_CLASSES)
+        host = {k: torch.from_numpy(v) for k, v in (
+            add_box_masks(batch) if cfg.seg else batch).items()}
+        objective = yolo_objective(size, cfg)
+        cpu_model = YOLO(cfg, device="cpu", seed=0)
+        start = copy.deepcopy(cpu_model.state_dict())
+
+        def step(model, b):
+            """Loss, gradients, BN statistics and the assignment (fg,
+            gt index) of one train-mode step from ``start``."""
+            model.load_state_dict(start)
+            model.zero_grad(set_to_none=True)
+            out = model(b["images"], train=True)
+            loss, _ = objective(out, b)
+            loss.backward()
+            d = decode_boxes(out, (size, size), cfg)
+            a = task_aligned_assign(d["scores"].detach(),
+                                    d["boxes"].detach(), b["boxes"],
+                                    b["classes"], b["mask"],
+                                    d["anchor_points"])
+            return (loss.item(),
+                    {n: p.grad.detach().cpu() for n, p in
+                     model.named_parameters() if p.grad is not None},
+                    {n: t.detach().cpu() for n, t in model.named_buffers()},
+                    (a["fg"].cpu(), a["target_gt_idx"].cpu()))
+
+        loss_c, grads_c, bufs_c, assign_c = step(cpu_model, host)
+        # the same step in float64 on the CPU: the exact answer, which the
+        # card's and the CPU's f32 steps each miss by their own rounding
+        loss_x, grads_x, bufs_x, _ = step(copy.deepcopy(cpu_model).double(), {
+            k: v.double() if v.is_floating_point() else v
+            for k, v in host.items()})
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        reset_counts(counters)
+        with deterministic():
+            loss_g, grads_g, bufs_g, assign_g = step(
+                card_model, {k: v.to(dev) for k, v in host.items()})
+        counts = launch_counts(counters)
+        check(counts == none, f"yolo {name} train step launched {counts}")
+        check(torch.equal(assign_g[0], assign_c[0])
+              and torch.equal(assign_g[1][assign_c[0] > 0],
+                              assign_c[1][assign_c[0] > 0]),
+              f"yolo {name}: the card's task-aligned assignment differs "
+              f"from the CPU's")
+
+        def errors(loss, grads, bufs) -> tuple:
+            """Loss (relative), gradient (relative in norm) and BN (max
+            abs) against the float64 step."""
+            return (abs(loss - loss_x) / abs(loss_x),
+                    global_grad_error({n: g.double() for n, g in
+                                       grads.items()}, grads_x),
+                    max(max_abs_err(bufs[k].double(), bufs_x[k])
+                        for k in bufs_x))
+
+        own = errors(loss_c, grads_c, bufs_c)
+        limit = tuple(max(tol, 2 * e) for tol, e in zip(
+            (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, 1e-5), own))
+        err = errors(loss_g, grads_g, bufs_g)
+        check(all(e <= lim for e, lim in zip(err, limit)),
+              f"yolo {name} train step, card f32 vs CPU f64: loss, gradient "
+              f"and BN errors {err} beyond {limit}")
+        vs_cpu = (abs(loss_g - loss_c) / abs(loss_c),
+                  global_grad_error(grads_g, grads_c),
+                  max(max_abs_err(bufs_g[k], bufs_c[k]) for k in bufs_c))
+        found.append(
+            f"{name}: loss {loss_g:.4f}, float64 {loss_x:.4f}; against "
+            f"the float64 step the card's loss, gradient and BN err "
+            f"{err[0]:.3g} / {err[1]:.3g} / {err[2]:.3g} (limits "
+            f"{limit[0]:.3g} / {limit[1]:.3g} / {limit[2]:.3g}), the CPU's "
+            f"f32 {own[0]:.3g} / {own[1]:.3g} / {own[2]:.3g}; card against "
+            f"the CPU's f32 {vs_cpu[0]:.3g} / {vs_cpu[1]:.3g} / "
+            f"{vs_cpu[2]:.3g}; {int(assign_c[0].sum())} foreground anchors, "
+            f"the same on both")
+        del cpu_model, card_model, grads_c, grads_x, grads_g
+    print(f"[25 yolo step] one train-mode step at {size}px b2 f32, TF32 off, "
+          f"NUM_CLASSES {NUM_CLASSES}, seeded weights, the card under "
+          f"deterministic algorithms, against the same step on the CPU in "
+          f"float64: " + "; ".join(found) + f"; no kernel launched; limits: "
+          f"loss {TRAIN_LOSS_TOL}, gradient {TRAIN_GRAD_TOL} in norm, BN "
+          f"1e-5, each raised to twice the CPU f32 step's own error", flush=True)
+
+    # (c) the timed run: YOLOv8n-seg, 640px b16 f32 with box masks
+    cfg = dataclasses.replace(yolo_config("yolov8n-seg"),
+                              num_classes=NUM_CLASSES)
+    one = {k: torch.as_tensor(v).to(dev) for k, v in add_box_masks(
+        make_train_batches(1, TRAIN_BATCH, 640, seed=26)[0]).items()}
+    trainer = Trainer(YOLO(cfg, device=dev, seed=0), yolo_objective(640, cfg),
+                      make_optimizer(LR), input_key="images")
+    state = trainer.init(one)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    rows = [trainer.train_step(state, one)]
+    counts = launch_counts(counters)
+    check(counts == none, f"yolo b16 step launched {counts}")
+    rows += [trainer.train_step(state, one)
+             for _ in range(YOLO_TRAIN_LOSS_STEPS - 1)]
+    losses = [r["total"] for r in rows]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(r["update_was_finite"] == 1.0 for r in rows),
+          f"yolo b16: the loss over {len(losses)} steps on one batch: "
+          f"{losses}")
+    turns = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TURN):
+            trainer.train_step(state, one)
+        torch.cuda.synchronize()
+        turns.append(1e3 * (time.perf_counter() - t0) / TRAIN_TURN)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[25 yolo train] yolov8n-seg ({NUM_CLASSES} classes) 640px b"
+          f"{TRAIN_BATCH} f32, TF32 off, seg loss on rasterize_boxes masks, "
+          f"AdamW lr {LR}: median {statistics.median(turns):.2f} ms/step "
+          f"(six turns of {TRAIN_TURN} steps, host clock, synchronized: "
+          f"{[round(t, 2) for t in turns]}), peak memory {peak:.2f} GiB; "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f} over "
+          f"{len(losses)} steps on one batch (box {rows[-1]['box']:.3f}, "
+          f"cls {rows[-1]['cls']:.3f}, dfl {rows[-1]['dfl']:.3f}, seg "
+          f"{rows[-1]['seg']:.3f}); launches per step {counts}", flush=True)
+    del trainer, state, one
+
+    # (d) one epoch of train_bscan_detector(detector="yolo"), then predict
+    root = os.path.join(HERE, "build", "chip_smoke_yolo")
+    data_dir = os.path.join(root, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    vols = write_volumes(data_dir)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    trainer, state = train_bscan_detector(
+        data_dir, size=640, batch_size=TRAIN_BATCH, epochs=1,
+        detector="yolo", seg=True, out=os.path.join(root, "ckpt"),
+        device=dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    check(launch_counts(counters) == none,
+          f"yolo epoch launched {launch_counts(counters)}")
+    history = trainer.ckpt.load_history()
+    check(all(np.isfinite(v[0]) for v in history.values())
+          and history["update_was_finite"] == [1.0],
+          f"yolo epoch: {history}")
+    frames = [detection_frames_from_volume(v, 640, 8, device=dev)
+              for v in vols]
+    data = {k: np.concatenate([getattr(f, k) for f in frames])[:64]
+            for k in ("images", "boxes", "classes", "mask")}
+    gt_masks = add_box_masks(data)["gt_masks"]
+    predictor = YoloPredictor(model=state.model.eval(), cfg=state.model.cfg)
+    preds, gts, mpreds, mgts = [], [], [], []
+    reset_counts(counters)
+    for a in range(0, 64, TRAIN_BATCH):
+        det = predictor.forward(torch.from_numpy(
+            data["images"][a:a + TRAIN_BATCH]).to(dev))
+        det = {k: v.cpu().numpy() for k, v in det.items()}
+        for i in range(det["boxes"].shape[0]):
+            t, v = a + i, det["valid"][i]
+            gm = data["mask"][t] > 0
+            preds.append({"boxes": det["boxes"][i][v],
+                          "scores": det["scores"][i][v],
+                          "classes": det["classes"][i][v]})
+            gts.append({"boxes": data["boxes"][t][gm],
+                        "classes": data["classes"][t][gm]})
+            mpreds.append({"masks": det["masks"][i][v],
+                           "scores": det["scores"][i][v],
+                           "classes": det["classes"][i][v]})
+            mgts.append({"masks": gt_masks[t][gm],
+                         "classes": data["classes"][t][gm]})
+    counts = launch_counts(counters)
+    n_predict = 64 // TRAIN_BATCH
+    check(counts == dict(none, nms_suppress=n_predict,
+                         assemble_masks=n_predict),
+          f"yolo predict after training launched {counts}")
+    box_map = evaluate_map(preds, gts, num_classes=NUM_CLASSES)["mAP@0.5"]
+    mask_map = evaluate_mask_map(mpreds, mgts, num_classes=NUM_CLASSES)[
+        "mask_mAP@0.5"]
+    check(0.0 <= box_map <= 1.0 and 0.0 <= mask_map <= 1.0,
+          f"yolo mAP@0.5 out of [0, 1]: box {box_map}, mask {mask_map}")
+    meta = json.load(open(os.path.join(root, "ckpt", "metadata.json")))
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[25 yolo volumes] train_bscan_detector(detector='yolo', "
+          f"seg=True) one epoch b{TRAIN_BATCH} 640px over seeds "
+          f"{list(VOLUME_SEEDS)} ({state.step} steps, {epoch_s:.2f} s with "
+          f"rendering): loss {history['total'][0]:.4f} (box "
+          f"{history['box'][0]:.4f}, cls {history['cls'][0]:.4f}, dfl "
+          f"{history['dfl'][0]:.4f}, seg {history['seg'][0]:.4f}), "
+          f"metadata {meta}; YoloPredictor on 64 of the frames: box mAP@0.5 "
+          f"{box_map:.4f}, mask mAP@0.5 {mask_map:.4f} (masks at 160x160 "
+          f"against rasterize_boxes' at proto resolution); launches over "
+          f"the predicts {counts}", flush=True)
+    del trainer, state, predictor
+
+
+def seeded_forward(model, frames):
+    """The temporal model's training forward with the generator seeded
+    first, so that the encoder's dropout draws the same masks in every
+    step of a check (cuDNN's GRU has no backward in eval mode)."""
+    import torch
+
+    torch.manual_seed(26)
+    return model(frames)
+
+
+def temporal_train_phase(torch, dev, counters: dict, wrappers: dict,
+                         none: dict) -> list:
+    """Phase 26: temporal D-FINE trained on the card over a seeded nano
+    trunk checkpoint: the v3 step at T = 50 through the kernels and the
+    plain versions (phase 20's rule), 20 steps of each variant, and the
+    weighted gather's two records at the v3 step's inputs."""
+    from pautdx_torch.models.vision.dfine import DFine, dfine_nano
+    from pautdx_torch.ops import gather
+    from pautdx_torch.train.checkpoint import CheckpointManager
+    from pautdx_torch.train.detector import dfine_metadata
+    from pautdx_torch.train.temporal import (build_temporal_trainer,
+                                             make_temporal_dataset,
+                                             stack_chunks)
+
+    root = os.path.join(HERE, "build", "chip_smoke_temporal")
+    shutil.rmtree(root, ignore_errors=True)
+    trunk = DFine(dfine_nano(num_labels=2), device=dev, seed=0)
+    CheckpointManager(root).save(0, {
+        "params": {k: v.detach().cpu() for k, v in trunk.named_parameters()},
+        "batch_stats": {k: v.cpu() for k, v in trunk.named_buffers()}},
+        metadata=dfine_metadata(trunk.cfg, TEMPORAL_IMG))
+    del trunk
+    t0 = time.perf_counter()
+    chunks = make_temporal_dataset(TEMPORAL_TRAIN_SEEDS, rng_seed=4,
+                                   size=TEMPORAL_IMG, device=dev)
+    data = stack_chunks(chunks, dev)
+    data_s = time.perf_counter() - t0
+    seq = tuple(data["images"].shape[1:])
+
+    # (a) the v3 step at T = 50 through the kernels and the plain versions
+    batch = {k: v[0] for k, v in data.items()}
+    trainer, state = build_temporal_trainer("v3", root, TEMPORAL_TRAIN_STEPS,
+                                            device=dev)
+    kernels_vs_plain = step_check(torch, dev, counters, wrappers, none,
+                                  batch, TEMPORAL_IMG)
+    captured = {}
+    per_step = dict(weighted_gather=3, weighted_gather_backward=3)
+    kernels_vs_plain(state.model.cfg, per_step,
+                     reorderings=weighted_reorderings(gather),
+                     captured=captured, phase="26", model=state.model,
+                     objective=trainer.objective,
+                     forward=lambda m: seeded_forward(m, batch["images"]),
+                     what=f"temporal v3 over dfine_nano, T={seq[0]}, the "
+                          f"same dropout masks in every step")
+    check(tuple(captured["weighted_gather"][1].shape) == (seq[0], 1200, 4),
+          f"temporal weighted gather taps "
+          f"{tuple(captured['weighted_gather'][1].shape)}")
+    del trainer, state
+
+    # (b) 20 steps of each variant, kernels and plain in turns
+    found = []
+    for variant in ("v1", "v2", "v3"):
+        trainer, state = build_temporal_trainer(
+            variant, root, TEMPORAL_TRAIN_STEPS, device=dev)
+        model = state.model
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        bufs = {n: b.clone() for n, b in model.named_buffers()}
+        rng = np.random.default_rng(3)
+        rows = []
+
+        def run(n: int) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                si = int(rng.integers(0, len(chunks)))
+                rows.append(trainer.train_step(
+                    state, {k: v[si] for k, v in data.items()}))
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        run(1)
+        counts = launch_counts(counters)
+        want = dict(none, weighted_gather=3,
+                    weighted_gather_backward=3 if variant == "v3" else 0)
+        check(counts == want, f"temporal {variant} step launched {counts}, "
+              f"want {want}")
+        run(3)
+        ms = {"kernels": [], "plain": []}
+        for arm in ("kernels", "plain", "plain", "kernels"):
+            with plain_kernels(wrappers) if arm == "plain" else nullcontext():
+                ms[arm].append(run(TEMPORAL_TURN))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(len(rows) == TEMPORAL_TRAIN_STEPS, f"{len(rows)} steps")
+        check(all(np.isfinite(r["total"]) and r["update_was_finite"] == 1.0
+                  for r in rows),
+              f"temporal {variant}: losses {[r['total'] for r in rows]}")
+        params = dict(model.named_parameters())
+        check(all(torch.equal(params[n], p) for n, p in frozen.items()),
+              f"temporal {variant}: a frozen parameter moved")
+        check(all(torch.equal(b, bufs[n])
+                  for n, b in model.named_buffers()),
+              f"temporal {variant}: a BN statistic moved")
+        found.append(
+            f"{variant}: {len(frozen)} of {len(params)} parameters frozen, "
+            f"unchanged bit for bit, BN statistics too; loss "
+            f"{rows[0]['total']:.3f} -> {rows[-1]['total']:.3f}; "
+            f"ms/step through the kernels {[round(m, 2) for m in ms['kernels']]}"
+            f", plain {[round(m, 2) for m in ms['plain']]}; peak memory "
+            f"{peak:.2f} GiB; launches a step {counts}")
+        del trainer, state, model, frozen, params
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[26 temporal train] {len(chunks)} sequences {seq} of seeds "
+          f"{list(TEMPORAL_TRAIN_SEEDS)} (flicker 0.65) rendered on the card "
+          f"in {data_s:.2f} s; {TEMPORAL_TRAIN_STEPS} steps each over a seeded "
+          f"dfine_nano trunk checkpoint, one sequence a step, the recipe's "
+          f"AdamW groups, f32, TF32 off (host clock, synchronized, turns of "
+          f"{TEMPORAL_TURN} steps after 4): " + "; ".join(found), flush=True)
+
+    # (c) the weighted gather and its backward at the v3 step's inputs
+    records = gather_records(torch, dev, captured, None,
+                             dict(none, **per_step), None,
+                             suffix="_temporal_train")
+    for r in records:
+        print_record("26", r, "per v3 step")
+    return records
 
 
 def main() -> None:
@@ -2195,7 +2630,8 @@ def main() -> None:
     # 9. YOLOv8n-seg f32, post-processed through kernels vs plain versions
     predictor = build_yolo_predictor(device=dev, seed=0)
     frames = make_frame_slab(1, 4, seed=3, device=dev)[0]
-    out = predictor.model(frames.to(torch.float32) / 255.0)
+    with torch.no_grad():
+        out = predictor.model(frames.to(torch.float32) / 255.0)
     reset_counts(counters)
     det_k = postprocess(out, (IMG, IMG), predictor.cfg)
     torch.cuda.synchronize()
@@ -2324,6 +2760,8 @@ def main() -> None:
     kernels += denoising_phase(torch, dev, counters, wrappers, none)
     kernels += temporal_phases(torch, dev, counters, wrappers, none)
     kernels += yolo_flavour_phases(torch, dev, counters, wrappers, none)
+    yolo_train_phase(torch, dev, counters, none)
+    kernels += temporal_train_phase(torch, dev, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

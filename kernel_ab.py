@@ -88,6 +88,20 @@ def kernel_calls(torch, dev) -> dict:
     oidx = widx[..., 0].contiguous()
     calls["onehot_gather_backward"] = lambda: (
         gather.onehot_gather_backward(g, oidx, 2000))
+    # the weighted gather's two other training shapes: the b4 step with a
+    # denoising group (342 queries x 8 points) and a temporal v3 step (one
+    # 50-frame sequence as the batch)
+    for suffix, B, T in (("_denoising", 4, 2736), ("_temporal_train", 50,
+                                                   1200)):
+        tf, tg = randn(B, 2000, 128), randn(B, T, 128)
+        ti = torch.randint(-3, 2003, (B, T, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        tw = rand(B, T, 4)
+        calls["weighted_gather" + suffix] = (
+            lambda tf=tf, ti=ti, tw=tw: gather.weighted_gather(tf, ti, tw))
+        calls["weighted_gather_backward" + suffix] = (
+            lambda tf=tf, ti=ti, tw=tw, tg=tg:
+            gather.weighted_gather_backward(tf, ti, tw, tg))
     return calls
 
 

@@ -40,6 +40,10 @@ class SyntheticDefect:
     amplitude: float = 0.9
 
 
+# the accuracy harness's class ids of the synthetic defect labels
+CLASS_MAP = {"Delamination": 0, "FO": 1}
+
+
 @dataclasses.dataclass
 class VolumeSpec:
     n_beams: int = 8

@@ -27,13 +27,25 @@ and each gradient leaf's relative error is printed beside its 1e-3 limit.
 
     python -m pautdx_torch.eval.accuracy [--steps 3000] [--batch 16]
         [--quick] [--volumes N] [--device cuda|cpu] [--out FILE]
+        [--temporal]
 
 ``--quick`` runs 128px frames and at most 60 steps; ``--volumes N`` takes
 the first N seeds of each set. The last line of the output is one JSON
 object with every arm's mAP@0.5, the step count, the frame counts, the
 wall time, the median ms/step and the card's name and power limit as
-``nvidia-smi`` reports them. The reference's ``parity_small``, temporal
-and int8 arms are not part of this run.
+``nvidia-smi`` reports them.
+
+``--temporal`` runs the reference's temporal arm instead
+(``bench_accuracy.run_temporal``, :func:`run_temporal`): 20 train and 8
+validation volumes of seeds 200-219 and 700-707 whose defect echoes
+flicker (``train.temporal.make_temporal_dataset``), cut into 50-frame
+sequences at 320px (``--quick``: 2 and 1 volumes, 8-frame sequences at
+96px, 8 temporal steps); the single-frame trunk trained for
+min(``--steps``, 2000) steps as above and checkpointed with its EMA, then
+v1, v2 and v3 trained over it for 400, 1000 and 400 steps
+(``train.temporal.train_temporal``); each variant's per-frame mAP@0.5
+beside the trunk's. The reference's ``parity_small`` and int8 arms are
+not part of either run.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ import dataclasses
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -51,6 +64,7 @@ import numpy as np
 import torch
 
 from pautdx_torch.data import synthetic
+from pautdx_torch.data.synthetic import CLASS_MAP
 from pautdx_torch.data.vision import detection_frames_from_volume
 from pautdx_torch.data.volume import parse_json_volume
 from pautdx_torch.device import resolve_device
@@ -60,15 +74,16 @@ from pautdx_torch.ops import gather
 from pautdx_torch.serve.throughput import (build_serving_model,
                                            cast_params_bf16,
                                            prepatchify_uint8)
-from pautdx_torch.train.detector import dfine_objective
+from pautdx_torch.train.checkpoint import CheckpointManager
+from pautdx_torch.train.detector import dfine_metadata, dfine_objective
 from pautdx_torch.train.optim import cosine_schedule, make_optimizer
+from pautdx_torch.train.temporal import make_temporal_dataset, train_temporal
 from pautdx_torch.train.trainer import Trainer, TrainState, ema_weights
 
 IMG = 640
 QUICK_IMG = 128
 QUICK_STEPS = 60
-CLASS_MAP = {"Delamination": 0, "FO": 1}
-NUM_LABELS = 2
+NUM_LABELS = len(CLASS_MAP)
 N_SCANS = 60
 MAX_BOXES = 8
 TRAIN_SEEDS = range(100, 125)
@@ -169,15 +184,15 @@ def train(data: Data, steps: int, batch: int, size: int = IMG, log=print
     return trainer, state, [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
 
 
-def _map50(run, data: Data, size: int) -> float:
+def _map50(run, data: Data, size: int, batch: int = EVAL_BATCH) -> float:
     """mAP@0.5 of ``run(a, b)`` (the model's output on frames a:b) over
-    the whole batches of ``data``, as the reference's ``eval_jax``."""
+    the whole batches of ``batch`` frames of ``data``, as the reference's
+    ``eval_jax``."""
     boxes = data["boxes"].cpu().numpy()
     classes = data["classes"].cpu().numpy()
     mask = data["mask"].cpu().numpy()
     n = boxes.shape[0]
     preds, gts = [], []
-    batch = EVAL_BATCH
     for a in range(0, n - n % batch, batch):
         with torch.inference_mode():
             out = run(a, a + batch)
@@ -293,12 +308,128 @@ def discrete_step_errors(state: TrainState, data: Data, size: int = IMG
             "leaves": leaves}
 
 
+# the temporal arm (``bench_accuracy.run_temporal``): frame side, sequence
+# length, scans a volume, temporal steps (v2 takes V2_STEP_SCALE of them),
+# train and validation volumes; the quick run's values beside them
+TEMPORAL_IMG, QUICK_TEMPORAL_IMG = 320, 96
+TEMPORAL_SEQ, QUICK_TEMPORAL_SEQ = 50, 8
+TEMPORAL_SCANS, QUICK_TEMPORAL_SCANS = 60, 10
+TEMPORAL_STEPS, QUICK_TEMPORAL_STEPS = 400, 8
+TEMPORAL_VOLUMES, QUICK_TEMPORAL_VOLUMES = (20, 8), (2, 1)
+TRUNK_STEPS = 2000          # at most, of --steps
+V2_STEP_SCALE = 2.5
+
+
+def chunk_data(chunks, device: Union[str, torch.device]) -> Data:
+    """The sequences' frames, flattened in order, on ``device``: images
+    rounded to bf16 and computed in f32 (the reference stores them in
+    bf16), pixel boxes, classes and masks."""
+    parts = {k: torch.from_numpy(np.concatenate([getattr(c, k)
+                                                 for c in chunks])).to(device)
+             for k in ("images", "boxes", "classes", "mask")}
+    parts["images"] = parts["images"].to(torch.bfloat16).float()
+    return parts
+
+
+def eval_trunk_on_chunks(trunk: DFine, data: Data, size: int,
+                         seq_len: int) -> float:
+    """Single-frame mAP@0.5 of the trunk on the frames the temporal
+    models see, ``seq_len`` frames a call (``bench_accuracy.py:715``)."""
+    trunk.eval()
+    return _map50(lambda a, b: trunk(data["images"][a:b]), data, size,
+                  batch=seq_len)
+
+
+def eval_temporal(model, data: Data, size: int, seq_len: int) -> float:
+    """Per-frame mAP@0.5 of a temporal model, one sequence a call, on the
+    defect columns of its logits (``bench_accuracy.py:678``)."""
+    model.eval()
+
+    def run(a, b):
+        out = model(data["images"][a:b])
+        return {"logits": out["logits"][..., :NUM_LABELS],
+                "pred_boxes": out["pred_boxes"]}
+
+    return _map50(run, data, size, batch=seq_len)
+
+
+def run_temporal(args, dev: torch.device) -> Dict:
+    """The temporal arm: the single-frame trunk trained on the flattened
+    train sequences (``train``, EMA kept) and checkpointed, then v1, v2
+    (``V2_STEP_SCALE`` x the steps) and v3 trained over it by
+    ``train.temporal.train_temporal``; each variant's per-frame mAP@0.5
+    on the validation sequences beside the trunk's."""
+    q = args.quick
+    size = QUICK_TEMPORAL_IMG if q else TEMPORAL_IMG
+    seq = QUICK_TEMPORAL_SEQ if q else TEMPORAL_SEQ
+    n_scans = QUICK_TEMPORAL_SCANS if q else TEMPORAL_SCANS
+    n_train, n_val = QUICK_TEMPORAL_VOLUMES if q else TEMPORAL_VOLUMES
+    seq_steps = QUICK_TEMPORAL_STEPS if q else TEMPORAL_STEPS
+    trunk_steps = min(args.steps, TRUNK_STEPS)
+    t0 = time.perf_counter()
+    train_chunks, val_chunks = (
+        make_temporal_dataset(range(first, first + n), n_scans=n_scans,
+                              rng_seed=rng_seed, size=size, seq_len=seq,
+                              device=dev)
+        for first, n, rng_seed in ((200, n_train, 4), (700, n_val, 5)))
+    train_data, val_data = (chunk_data(c, dev)
+                            for c in (train_chunks, val_chunks))
+    print(f"temporal: {len(train_chunks)} train and {len(val_chunks)} "
+          f"validation sequences of {seq} frames at {size}px "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    out: Dict = {"img_size": size, "seq_len": seq, "flicker": 0.65,
+                 "trunk_steps": trunk_steps, "temporal_steps": seq_steps}
+    with tempfile.TemporaryDirectory() as ckpt:
+        print(f"trunk: {trunk_steps} steps at batch {args.batch}", flush=True)
+        trainer, state, step_ms = train(train_data, trunk_steps, args.batch,
+                                        size,
+                                        log=lambda m: print(m, flush=True))
+        out["trunk_median_ms_per_step"] = statistics.median(step_ms)
+        with ema_weights(state) as model:
+            CheckpointManager(ckpt).save(0, {
+                "params": {k: v.detach().cpu() for k, v in
+                           model.named_parameters()},
+                "batch_stats": {k: v.cpu() for k, v in
+                                model.named_buffers()}},
+                metadata=dfine_metadata(model.cfg, size))
+            out["single_frame_map50"] = eval_trunk_on_chunks(
+                model, val_data, size, seq)
+        print(f"  trunk single-frame mAP@0.5 = "
+              f"{out['single_frame_map50']:.4f}", flush=True)
+        del trainer, state
+        for variant in ("v1", "v2", "v3"):
+            steps = (int(seq_steps * V2_STEP_SCALE) if variant == "v2"
+                     else seq_steps)
+            t0 = time.perf_counter()
+            _, vstate, rows = train_temporal(
+                variant, ckpt, train_chunks, steps, device=dev,
+                log=lambda m: print(m, flush=True))
+            train_s = time.perf_counter() - t0
+            m = eval_temporal(vstate.model, val_data, size, seq)
+            out[f"{variant}_map50"] = m
+            out[f"{variant}_steps"] = steps
+            out[f"{variant}_delta_vs_single"] = m - out["single_frame_map50"]
+            out[f"{variant}_ms_per_step"] = 1e3 * train_s / steps
+            out[f"{variant}_final_loss"] = rows[-1]["total"]
+            print(f"  {variant} mAP@0.5 = {m:.4f} (delta "
+                  f"{m - out['single_frame_map50']:+.4f})", flush=True)
+            del vstate
+    return out
+
+
 def card_line() -> Optional[str]:
     """``nvidia-smi``'s name and power limit of the first card."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_record(dev: torch.device) -> Dict:
+    return {"type": dev.type,
+            "name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu"),
+            "nvidia_smi": card_line() if dev.type == "cuda" else None}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -316,6 +447,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the result, "
                     "each gradient leaf's error included, to this file")
+    ap.add_argument("--temporal", action="store_true",
+                    help="the temporal arm instead: the trunk, then v1, v2 "
+                         "and v3 over it on flickering sequences")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     dev = resolve_device(args.device)
@@ -323,6 +457,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     steps = min(args.steps, QUICK_STEPS) if args.quick else args.steps
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.temporal:
+        result = {"temporal": run_temporal(args, dev),
+                  "wall_s": time.perf_counter() - t_start,
+                  "device": device_record(dev)}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        print(json.dumps(result), flush=True)
+        return result
 
     train_seeds, val_seeds = list(TRAIN_SEEDS), list(VAL_SEEDS)
     if args.volumes is not None:
@@ -365,10 +508,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "train_s": train_s, "data_s": data_s,
         "wall_s": time.perf_counter() - t_start,
         "discrete_step": {k: v for k, v in grads.items() if k != "leaves"},
-        "device": {"type": dev.type,
-                   "name": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else "cpu"),
-                   "nvidia_smi": card_line() if dev.type == "cuda" else None},
+        "device": device_record(dev),
     }
     if args.out:
         with open(args.out, "w") as f:

@@ -107,18 +107,20 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
-BN_MOMENTUM = 0.99   # the reference's BatchNorms all keep this default
+BN_MOMENTUM = 0.99   # the JAX BatchNorm's default, which D-FINE's keep; the
+#                      YOLO ``ConvBnSiLU`` sets 0.97 (Ultralytics' 0.03)
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with the reference's semantics (its BatchNorm,
     eps 1e-5 by default as in ``pautdx/models/vision/hgnet.py:156``, and
-    momentum ``BN_MOMENTUM``), switched by ``module.train()`` alone:
+    ``momentum`` ``BN_MOMENTUM`` by default), switched by
+    ``module.train()`` alone:
 
     - eval: normalise with the running statistics;
     - train: normalise with the batch's mean and biased variance over
       every dim but 1, in f32, and update the running statistics as
-      ``r = m * r + (1 - m) * batch`` (m = ``BN_MOMENTUM``), with the
+      ``r = m * r + (1 - m) * batch`` (m = ``momentum``), with the
       BIASED variance.
 
     ``nn.BatchNorm2d`` differs on two counts: its ``momentum`` is the
@@ -126,9 +128,11 @@ class BatchNorm(nn.Module):
     variance with the unbiased one. Unlike it, this module has no
     ``num_batches_tracked`` buffer, which no JAX leaf would fill."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -146,7 +150,7 @@ class BatchNorm(nn.Module):
         # another reduction over x. The scaled copy is autograd's to keep.
         scaled = self.running_var * (n / (n - 1))
         out = F.batch_norm(x, self.running_mean, scaled, self.weight,
-                           self.bias, True, 1.0 - BN_MOMENTUM, self.eps)
+                           self.bias, True, 1.0 - self.momentum, self.eps)
         torch.mul(scaled.detach(), (n - 1) / n, out=self.running_var)
         return out
 

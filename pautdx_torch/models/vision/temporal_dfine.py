@@ -1,4 +1,4 @@
-"""Temporal D-FINE: cross-frame fusion over B-scan sequences, at inference.
+"""Temporal D-FINE: cross-frame fusion over B-scan sequences.
 
 Counterpart of ``pautdx/models/vision/temporal_dfine.py``: the three
 variants with the reference's semantics.
@@ -27,9 +27,12 @@ Module names mirror the reference's parameter tree (``trunk``,
 ``temporal_encoder.layer_{i}``, ``temporal_attention.0``/``.2``,
 ``context_aggregator``, ``context_projector``, ``class_head``,
 ``bbox_head``, ``anomaly_detector.0``/``.2``/``.4``), so weights move
-through ``compat.jax_weights``. Training the temporal models (the
-per-variant trainable sets, the consistency loss) is ROADMAP.md, queue 1,
-item 10.
+through ``compat.jax_weights``.
+
+Training: :func:`trainable_mask` is each variant's trainable set by
+parameter name, :func:`temporal_consistency_loss` v3's anomaly term; the
+recipe around them is ``train/temporal.py``. Under ``model.train()`` the
+temporal encoder's dropout (0.1) is active; the trunk stays in eval mode.
 """
 
 from __future__ import annotations
@@ -180,3 +183,30 @@ def init_heads_from_trunk(model: TemporalDFine) -> TemporalDFine:
         if p.dim() >= 2:
             p.mul_(1e-3 / (p.std(correction=0) + 1e-12))
     return model
+
+
+def temporal_consistency_loss(anomaly: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference of consecutive frames' anomaly scores
+    (weight 0.1 in v3, ``temp_dfine_over_improved.py:292-301``)."""
+    return (anomaly[1:] - anomaly[:-1]).square().mean()
+
+
+def trainable_mask(variant: str, model: TemporalDFine) -> Dict[str, bool]:
+    """Which parameters train, by dotted name: v1 the temporal encoder
+    only (``temporal_dfine.py:133-139``); v2 also the fresh class head
+    (``temp_dfine_over.py:150-172``); v3 everything but the trunk's
+    backbone, ``trunk.model.backbone.model`` (``temp_dfine_over_improved.py:
+    152-157``)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"trainable_mask: variant {variant!r}, want one of "
+                         f"{VARIANTS}")
+
+    def decide(name: str) -> bool:
+        top = name.split(".", 1)[0]
+        if variant == "v1":
+            return top == "temporal_encoder"
+        if variant == "v2":
+            return top in ("temporal_encoder", "class_head")
+        return not name.startswith("trunk.model.backbone.model.")
+
+    return {name: decide(name) for name, _ in model.named_parameters()}

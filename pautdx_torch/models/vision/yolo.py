@@ -1,5 +1,5 @@
-"""YOLO detector/segmenter (inference): the v8, v5u, v9c and v11 flavours,
-det and seg.
+"""YOLO detector/segmenter: the v8, v5u, v9c and v11 flavours, det and seg,
+at inference and in training (``losses/yolo.py`` is the criterion).
 
 Counterpart of ``pautdx/models/vision/yolo.py``. Module paths mirror the
 JAX module tree (``backbone.c1.m.0.cv1.conv``, ``head.cv2.0.2``,
@@ -105,7 +105,8 @@ FLAVOURS = ("v8", "v5", "v9c", "v11")
 
 
 class ConvBnSiLU(nn.Module):
-    """Ultralytics ``Conv``: conv (no bias) + BN (eps 1e-3) + SiLU; padding
+    """Ultralytics ``Conv``: conv (no bias) + BN (eps 1e-3, momentum 0.97 as
+    ``pautdx/models/vision/yolo.py:149`` sets it) + SiLU; padding
     (k-1)//2 unless given. ``act=False`` gives the activation-free form
     (``RepConvN``'s branches, the PSA's qkv/proj/pe), ``groups=features``
     gives ``DWConv``. The int8 serving branch is not ported."""
@@ -117,7 +118,7 @@ class ConvBnSiLU(nn.Module):
         p = (kernel - 1) // 2 if padding is None else padding
         self.conv = nn.Conv2d(in_channels, features, kernel, stride, p,
                               groups=groups, bias=False)
-        self.bn = BatchNorm(features, eps=1e-3)
+        self.bn = BatchNorm(features, eps=1e-3, momentum=0.97)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -591,7 +592,7 @@ class MaskCoeffHead(nn.Module):
 
 
 class YOLO(nn.Module):
-    """Full detector at inference. ``forward(images)`` takes NHWC float
+    """Full detector. ``forward(images)`` takes NHWC float
     images (B, H, W, 3), H and W multiples of 32, and returns
     ``{"levels": [{"box", "cls"}, ...]}`` at (B, h, w, C) per stride, plus
     with ``seg`` ``"protos"`` (B, H/4, W/4, P) and ``"mask_coeffs"``, one
@@ -617,8 +618,15 @@ class YOLO(nn.Module):
         self.to(dtype)
         self.eval()
 
-    @torch.no_grad()
-    def forward(self, images: torch.Tensor) -> Dict:
+    def forward(self, images: torch.Tensor,
+                train: Optional[bool] = None) -> Dict:
+        """The module's mode (``model.train()`` / ``model.eval()``) decides
+        whether BatchNorm normalises with the batch's statistics and
+        updates its running ones; ``train``, where given, sets that mode
+        first, as the reference's ``__call__(images, train)`` does per
+        call. Gradients flow unless the caller turns them off."""
+        if train is not None and train != self.training:
+            self.train(train)
         H, W = images.shape[1:3]
         if H % 32 or W % 32:
             # the PAN neck's 2x upsample + skip concat needs exact doubling
@@ -663,8 +671,10 @@ def anchor_points(img_size: Tuple[int, int],
 
 def dfl_expectation(box_dist: torch.Tensor, reg_max: int) -> torch.Tensor:
     """(..., 4*reg_max) logits, laid out (4, reg_max) -> (..., 4) expected
-    ltrb distances; the softmax is taken in float32."""
-    d = box_dist.float().reshape(box_dist.shape[:-1] + (4, reg_max))
+    ltrb distances; the softmax is taken in float32, or float64 for float64
+    logits."""
+    d = box_dist.to(torch.promote_types(box_dist.dtype, torch.float32))
+    d = d.reshape(box_dist.shape[:-1] + (4, reg_max))
     p = torch.softmax(d, dim=-1)
     bins = torch.arange(reg_max, dtype=torch.float32, device=d.device)
     return (p * bins).sum(-1)

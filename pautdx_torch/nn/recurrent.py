@@ -35,6 +35,18 @@ class BiGRU(nn.GRU):
 
     def __init__(self, d_in: int, hidden: int):
         super().__init__(d_in, hidden, batch_first=True, bidirectional=True)
+        # the reference's hidden Denses hr and hz have no bias; torch's
+        # b_hr and b_hz (the first 2 * hidden of bias_hh), which the
+        # weight bridge fills with 0, take the same gradient as b_ir and
+        # b_iz, so training them would move those gates' biases twice as
+        # fast as the reference's (Adam steps each parameter by about the
+        # lr). Their gradient is zeroed, so they stay 0.
+        for bias in (self.bias_hh_l0, self.bias_hh_l0_reverse):
+            bias.register_hook(self._without_gate_biases)
+
+    def _without_gate_biases(self, grad: torch.Tensor) -> torch.Tensor:
+        h = self.hidden_size
+        return torch.cat([torch.zeros_like(grad[:2 * h]), grad[2 * h:]])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
         dt = torch.promote_types(x.dtype, torch.float32)

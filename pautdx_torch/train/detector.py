@@ -1,18 +1,21 @@
-"""The D-FINE training entry points.
+"""The B-scan detector training entry points, D-FINE and YOLO.
 
-Counterpart of the D-FINE branch of ``pautdx/cli.py:168-247``
-(``train-detector --detector dfine``): :func:`train_bscan_detector` reads a
-directory of PAUT volumes (``.json`` files and txt-tree folders), renders
-them to B-scan frames on the card, batches them on a host thread and
-trains D-FINE-nano through the ``Trainer`` with per-epoch checkpoints.
-The ``train-detector`` subcommand itself waits for the CLI (ROADMAP.md,
-queue 1, item 15). Batches follow the ``data/vision.py::batch_frames``
-schema:
+Counterpart of ``pautdx/cli.py:168-247`` (``train-bscan``, both
+``--detector`` branches): :func:`train_bscan_detector` reads a directory of
+PAUT volumes (``.json`` files and txt-tree folders), renders them to B-scan
+frames on the card, batches them on a host thread and trains D-FINE-nano
+or a YOLO (``YoloConfig(num_classes, scale, flavour)``, the CLI's) through
+the ``Trainer`` with per-epoch checkpoints. The ``train-bscan`` subcommand
+itself waits for the CLI (ROADMAP.md, queue 1, item 15). Batches follow
+the ``data/vision.py::batch_frames`` schema:
 
 - ``images``: (B, S, S, 3) float32 frames in [0, 1];
 - ``boxes``: (B, M, 4) xyxy in pixels;
 - ``classes``: (B, M) int32;
-- ``mask``: (B, M) float32, 1 for a real box.
+- ``mask``: (B, M) float32, 1 for a real box;
+- ``gt_masks`` (YOLO-seg only): (B, M, S/4, S/4) float32, each box filled
+  at proto resolution by ``data/annotations.rasterize_boxes``
+  (:func:`add_box_masks`).
 
 :func:`make_train_batches` makes such batches from a seed, for smoke runs
 and measurements.
@@ -26,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pautdx_torch.data.annotations import rasterize_boxes
 from pautdx_torch.data.augment_vision import augment_detection_batch
 from pautdx_torch.data.prefetch import ThreadedHostLoader
 from pautdx_torch.data.vision import (batch_frames,
@@ -36,8 +40,10 @@ from pautdx_torch.device import resolve_device
 from pautdx_torch.losses.denoising import (denoising_loss,
                                            make_denoising_queries)
 from pautdx_torch.losses.detr import dfine_criterion
+from pautdx_torch.losses.yolo import yolo_loss
 from pautdx_torch.models.vision.dfine import (DFine, DFineConfig,
                                               config_to_dict, dfine_nano)
+from pautdx_torch.models.vision.yolo import YOLO, YoloConfig
 from pautdx_torch.train.optim import make_optimizer
 from pautdx_torch.train.trainer import Trainer, TrainState
 
@@ -96,18 +102,60 @@ def denoising_forward(size: int, cfg: DFineConfig, num_denoising: int,
     return forward
 
 
-# the CLI's defaults: --num-classes, --lr, --max-boxes
+def yolo_objective(size: int, cfg: YoloConfig) -> Callable:
+    """``cli.py:199-201``: ``yolo_loss`` on the pixel boxes of a ``size``
+    frame; with ``cfg.seg``, plus the mask BCE against the batch's
+    ``gt_masks``. The aux adds the loss as ``total``."""
+
+    def objective(out, batch):
+        loss, aux = yolo_loss(
+            out, batch["boxes"], batch["classes"], batch["mask"], cfg,
+            (size, size),
+            gt_masks=batch.get("gt_masks") if cfg.seg else None)
+        return loss, {**aux, "total": loss}
+
+    return objective
+
+
+PROTO_STRIDE = 4      # YOLO-seg's protos lie at a quarter of the frame
+
+
+def add_box_masks(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``batch`` with ``gt_masks`` (B, M, S/4, S/4): each valid box filled
+    with 1 at proto resolution by ``rasterize_boxes``, padding rows 0."""
+    B, M = batch["mask"].shape
+    side = batch["images"].shape[1] // PROTO_STRIDE
+    masks = np.zeros((B, M, side, side), np.float32)
+    for b, m in zip(*np.nonzero(batch["mask"] > 0)):
+        masks[b, m] = rasterize_boxes(batch["boxes"][b, m] / PROTO_STRIDE,
+                                      (side, side), value=1.0)
+    return {**batch, "gt_masks": masks}
+
+
+# the CLI's defaults: --num-classes, --lr, --max-boxes, --scale, --flavour
 NUM_CLASSES = 2
 LR = 1e-3
 MAX_BOXES = 8
+SCALE = "n"
+FLAVOUR = "v8"
 
 
 def dfine_metadata(cfg: DFineConfig, size: int) -> Dict:
     """The checkpoint metadata of ``cli.py:239-244`` for a D-FINE run (with
     the CLI's ``--scale``/``--flavour`` defaults, which D-FINE ignores)."""
     return {"detector": "dfine", "num_classes": cfg.num_labels,
-            "size": size, "scale": "n", "flavour": "v8",
+            "size": size, "scale": SCALE, "flavour": FLAVOUR,
             "dfine_config": config_to_dict(cfg)}
+
+
+def yolo_metadata(cfg: YoloConfig, size: int) -> Dict:
+    """The checkpoint metadata of ``cli.py:239-241`` for a YOLO run, and
+    ``"seg": True`` for a seg model, which the CLI does not train."""
+    meta = {"detector": "yolo", "num_classes": cfg.num_classes,
+            "size": size, "scale": cfg.scale, "flavour": cfg.flavour}
+    if cfg.seg:
+        meta["seg"] = True
+    return meta
 
 
 def build_dfine_trainer(size: int = 640,
@@ -157,27 +205,35 @@ def train_bscan_detector(data_dir: str, size: int = 640,
                          batch_size: int = 16, epochs: int = 1,
                          lr: float = LR, max_boxes: int = MAX_BOXES,
                          augment: bool = False, out: Optional[str] = None,
-                         detector: str = "dfine",
+                         detector: str = "dfine", scale: str = SCALE,
+                         flavour: str = FLAVOUR, seg: bool = False,
                          ema_decay: Optional[float] = None,
                          num_denoising: int = 0,
                          device: Optional[Union[str, torch.device]] = None,
                          log: Callable[[str], None] = print
                          ) -> Tuple[Trainer, TrainState]:
-    """``train-detector --detector dfine`` (``cli.py:168-247``) on
-    ``device`` (default ``"cuda"``): the volumes of ``data_dir`` rendered
-    to frames, split, shuffled by ``default_rng(0)`` each epoch and cut
-    into full batches on a host thread (augmented where ``augment``), then
-    ``DFine(dfine_nano(NUM_CLASSES))`` trained at ``lr`` with seeded
-    weights; with ``out``, a checkpoint with ``dfine_metadata`` after every
-    epoch. ``ema_decay`` keeps the EMA of the parameters; ``num_denoising``
-    > 0 adds contrastive denoising groups of that many queries (rounded to
-    whole groups of 2 * ``max_boxes``), drawn from a generator seeded with
-    0. Returns the trainer and its state."""
-    if detector != "dfine":
-        raise NotImplementedError(
-            f"train_bscan_detector(detector={detector!r}): only 'dfine' is "
-            f"ported; the YOLO loss (losses/yolo.py) waits for ROADMAP.md, "
-            f"queue 1, item 10")
+    """``train-bscan`` (``cli.py:168-247``) on ``device`` (default
+    ``"cuda"``): the volumes of ``data_dir`` rendered to frames, split,
+    shuffled by ``default_rng(0)`` each epoch and cut into full batches on
+    a host thread (augmented where ``augment``), then trained at ``lr``
+    with seeded weights; with ``out``, a checkpoint with the run's metadata
+    after every epoch. ``ema_decay`` keeps the EMA of the parameters.
+
+    ``detector="dfine"``: ``DFine(dfine_nano(NUM_CLASSES))``;
+    ``num_denoising`` > 0 adds contrastive denoising groups of that many
+    queries (rounded to whole groups of 2 * ``max_boxes``), drawn from a
+    generator seeded with 0. ``detector="yolo"``:
+    ``YOLO(YoloConfig(NUM_CLASSES, scale, flavour))`` under ``yolo_loss``;
+    ``seg`` trains the seg model on box masks (:func:`add_box_masks`), a
+    run the CLI has no flag for. Returns the trainer and its state."""
+    if detector not in ("dfine", "yolo"):
+        raise ValueError(f"train_bscan_detector: detector {detector!r}, "
+                         f"want 'dfine' or 'yolo'")
+    if detector == "yolo" and num_denoising > 0:
+        raise ValueError("train_bscan_detector: denoising groups are "
+                         "D-FINE's; YOLO trains without them")
+    if seg and detector != "yolo":
+        raise ValueError("train_bscan_detector: seg is a YOLO option")
     dev = resolve_device(device)
     frames_list = []
     for entry in sorted(os.listdir(data_dir)):
@@ -203,15 +259,22 @@ def train_bscan_detector(data_dir: str, size: int = 640,
                 frames_list, order[i * batch_size:(i + 1) * batch_size])
             if augment:
                 batch = augment_detection_batch(batch, rng)
-            yield batch
+            yield add_box_masks(batch) if seg else batch
 
-    cfg = dfine_nano(num_labels=NUM_CLASSES)
     forward = None
-    if num_denoising > 0:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        forward = denoising_forward(size, cfg, num_denoising, gen)
-    trainer = Trainer(DFine(cfg, device=dev),
-                      dfine_objective(size, cfg), make_optimizer(lr),
+    if detector == "yolo":
+        cfg = YoloConfig(num_classes=NUM_CLASSES, scale=scale,
+                         flavour=flavour, seg=seg)
+        model, objective = YOLO(cfg, device=dev), yolo_objective(size, cfg)
+        metadata = yolo_metadata(cfg, size)
+    else:
+        cfg = dfine_nano(num_labels=NUM_CLASSES)
+        model, objective = DFine(cfg, device=dev), dfine_objective(size, cfg)
+        metadata = dfine_metadata(cfg, size)
+        if num_denoising > 0:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            forward = denoising_forward(size, cfg, num_denoising, gen)
+    trainer = Trainer(model, objective, make_optimizer(lr),
                       checkpoint_dir=out, ema_decay=ema_decay,
                       input_key="images", forward=forward)
     # the reference draws its init batch from the epoch stream: one
@@ -223,8 +286,7 @@ def train_bscan_detector(data_dir: str, size: int = 640,
         log(f"[epoch {epoch}] " + " ".join(
             f"{k}={v:.4f}" for k, v in metrics.items()))
         if trainer.ckpt is not None:
-            trainer.ckpt.save(epoch, state.state_dict(),
-                              metadata=dfine_metadata(cfg, size),
+            trainer.ckpt.save(epoch, state.state_dict(), metadata=metadata,
                               history={k: [v] for k, v in metrics.items()},
                               is_best=True)
     return trainer, state

@@ -372,7 +372,7 @@ def _weighted_inputs(B, L, C, T, seed, device):
     ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
     ((2, 30, 8, 5), False), ((2, 20000, 128, 500), False),
     ((4, 2000, 128, 1200), True), ((16, 2000, 128, 2736), False),
-    ((4, 2000, 128, 2736), False)])
+    ((4, 2000, 128, 2736), False), ((50, 2000, 128, 1200), False)])
 def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     """Forward and both gradients against the plain version and its
     autograd, to 1e-5 of the largest magnitude: the forward sums four
@@ -380,7 +380,8 @@ def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     shared-memory atomics whose order changes from run to run. (16, 2000,
     128) x 1200 taps is the training path's, x 2736 its taps with a
     denoising group of 192 queries (150 + 192 queries x 8 points), at b16
-    and at b4; T=37 and C=8 are ragged;
+    and at b4, and (50, 2000, 128) x 1200 a temporal v3 step's, one
+    50-frame sequence as the batch; T=37 and C=8 are ragged;
     L=20000 splits the backward's rows into ranges; the pile-up sends
     every corner of a frame to one row."""
     flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
@@ -579,7 +580,7 @@ def test_yolo_predict_takes_any_layout_and_owns_its_precision(cuda):
                                                     before[1] + 2)
     assert permuted["masks"].shape == (2, 100, 32, 32)
     assert torch.isfinite(permuted["masks"]).all()
-    with yolo_predict.full_f32():
+    with yolo_predict.full_f32(), torch.no_grad():
         raw = [predictor.model(t) for t in (x, x.permute(0, 3, 1, 2)
                                             .contiguous().permute(0, 2, 3, 1))]
     torch.testing.assert_close(raw[1]["protos"], raw[0]["protos"],
@@ -608,7 +609,7 @@ def test_yolo_flavour_postprocess_matches_plain(cuda, name, monkeypatch):
                                                   cfg=cfg)
     frames = torch.from_numpy(np.random.default_rng(8).integers(
         0, 256, (2, 640, 640, 3)).astype(np.uint8)).to(cuda)
-    with yolo_predict.full_f32():
+    with yolo_predict.full_f32(), torch.no_grad():
         out = predictor.model(frames.float() / 255.0)
     before = (suppress.LAUNCHES, masks.LAUNCHES)
     got = yolo_predict.postprocess(out, (640, 640), cfg)

@@ -53,8 +53,8 @@ def test_train_bscan_detector_from_volumes(volume_dir, tmp_path):
     model, _, _ = restore_dfine(str(tmp_path), device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(v, trainer.model.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_bscan_detector(volume_dir, detector="yolo", device="cpu")
+    with pytest.raises(ValueError, match="want 'dfine' or 'yolo'"):
+        train_bscan_detector(volume_dir, detector="rtdetr", device="cpu")
 
 
 def test_accuracy_quick_run(capsys):

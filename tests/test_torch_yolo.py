@@ -174,7 +174,8 @@ def test_model_matches_reference(jax_model, seg):
     x = _images(img)
     want = jyolo.YOLO(_jcfg(cfg)).apply(variables, jnp.asarray(x),
                                         train=False)
-    got = _port(cfg, variables)(torch.from_numpy(x))
+    with torch.no_grad():
+        got = _port(cfg, variables)(torch.from_numpy(x))
     assert len(got["levels"]) == len(want["levels"]) == 3
     pairs = [(g[k], w[k]) for g, w in zip(got["levels"], want["levels"])
              for k in ("box", "cls")]

@@ -83,7 +83,8 @@ def _calibrated(cfg, variables, x):
     for m in names:
         if isinstance(m, tyolo.BatchNorm):
             m.register_forward_pre_hook(calibrate)
-    port(torch.from_numpy(x))
+    with torch.no_grad():
+        port(torch.from_numpy(x))
     assert len(stats) == len(flatten(variables["batch_stats"]))
     return {**variables,
             "batch_stats": _with_stats(variables["batch_stats"], stats)}
@@ -133,7 +134,8 @@ def test_model_matches_reference(flavour, stats):
     want = outs[stats]
     port = load_jax_variables(tyolo.YOLO(cfg, device="cpu"),
                               variables[stats], device="cpu")
-    got = port(torch.from_numpy(x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
     atol, rtol = TOL[name]
     for g, w in _pairs(got, want):
         assert tuple(g.shape) == w.shape

@@ -73,7 +73,8 @@ def _replica(name):
 def _outputs(port, x):
     """The port's raw outputs on NHWC ``x``, laid out as the replica's:
     [(box, cls)] per level, protos and coefficients NCHW."""
-    got = port(torch.from_numpy(x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
     out = {"levels": [(lvl["box"].permute(0, 3, 1, 2),
                        lvl["cls"].permute(0, 3, 1, 2))
                       for lvl in got["levels"]]}
