@@ -6,7 +6,8 @@ HF-architecture D-FINE 640px predict path, D-FINE-nano training from
 PAUT volumes, the temporal D-FINE serving path (50-frame sequences
 through the chunked runner and the frames bridge), the YOLOv9c-seg,
 YOLO11n and YOLOv5su 640px predict paths, YOLO training and temporal
-D-FINE training through their entry points.
+D-FINE training through their entry points, and the signal domain: the
+21-model zoo and HybridBinary served through ``SignalEndpoint``.
 
     python3 chip_smoke.py
 
@@ -199,7 +200,24 @@ Phases, one line each, in order; any failure exits non-zero:
     statistics unchanged bit for bit, launches a step (3 weighted
     gathers, and 3 backwards for v3 only), ms/step and peak memory; the
     records of the weighted gather and its backward at the v3 step's
-    inputs, (50, 2000, 128) x (1200, 4).
+    inputs, (50, 2000, 128) x (1200, 4);
+27. the signal zoo: every ``MODEL_ZOO`` name at its published default
+    widths (``models.signal.build_signal_model``, seeded weights), f32,
+    TF32 off, at (B, N, S) = (16, 50, 320), the largest batch bucket at
+    the recipe's ``seq_len`` 50 and ``signal_length`` 320, on the card
+    and, with the same weights, on the CPU: every output (each key of a
+    dict) within ``SIGNAL_TOL``; one line per model with its max |err|;
+    the zoo launches no kernel (the signal path reaches no Pallas kernel
+    in the reference);
+28. HybridBinary served: ``serve.endpoints.SignalEndpoint`` at (16, 50,
+    320) and at a ragged (3, 37, 320), answered at the request's own shape
+    and held to the CPU model at that shape within ``SIGNAL_TOL``; a
+    ``serve.bridge.serve_signals`` round trip through in-memory streams;
+    ``eval.report.prediction_map`` over phase 19's first volume, card
+    against CPU; then A-scans per second through the endpoint from host
+    numpy, host copies included (``SIGNAL_TURNS`` turns of
+    ``SIGNAL_CALLS`` calls, the median turn beside all turns), and the
+    device ms of one forward and of one ``predict`` by CUDA events.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -257,6 +275,8 @@ HF_STEPS = 4
 # L2, so that every call finds its inputs in HBM, as the bounds count them
 # (0: no flush)
 FLUSH_BYTES = 128 * 2**20
+# traces of one device_ms call before it gives up on seeing device events
+PROFILER_ATTEMPTS = 10
 # head dims of phase 14: every instantiation of the attention kernel (16,
 # 32, 64, 128, 256), short ones padded (1, 8, 24, 37, 48), column blocks
 # (80, 100, 200), and off 16-byte alignment (1, 37, 100 in bf16)
@@ -284,6 +304,14 @@ YOLO_TRAIN_LOSS_STEPS = 20
 TEMPORAL_TRAIN_SEEDS = range(200, 202)
 TEMPORAL_TRAIN_STEPS = 20
 TEMPORAL_TURN = 4
+# phases 27-28: the served signal request (the largest batch bucket, the
+# recipe's seq_len and signal_length), the ragged one, the card-vs-CPU
+# limit on every output, and the endpoint's timed turns
+SIGNAL_SHAPE = (16, 50, 320)
+SIGNAL_RAGGED = (3, 37, 320)
+SIGNAL_TOL = 1e-4
+SIGNAL_TURNS = 6
+SIGNAL_CALLS = 20
 
 
 def fail(msg: str) -> None:
@@ -400,8 +428,10 @@ def device_ms(fn, reps: int = 20, parts: dict = None) -> float:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # a trace now and then comes back without its device events (seen
-    # once in some hundred traces of this script on the card): trace again
-    for _ in range(3):
+    # once in some hundred traces of this script on the card, and two
+    # traces in a row twice in 200 back-to-back traces; three in a row
+    # failed a run once): trace again
+    for _ in range(PROFILER_ATTEMPTS):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 flush(buf)
@@ -2371,6 +2401,138 @@ def temporal_train_phase(torch, dev, counters: dict, wrappers: dict,
     return records
 
 
+def signal_phases(torch, dev, counters: dict, none: dict) -> None:
+    """Phases 27-28: the signal zoo on the card against the CPU, and
+    HybridBinary served through the endpoint, the bridge and the
+    prediction map."""
+    import copy
+    import io
+
+    from pautdx_torch.data import synthetic
+    from pautdx_torch.data.volume import parse_json_volume
+    from pautdx_torch.eval import accuracy
+    from pautdx_torch.eval.report import prediction_map
+    from pautdx_torch.models.signal import MODEL_ZOO, build_signal_model
+    from pautdx_torch.serve.bridge import serve_signals
+    from pautdx_torch.serve.endpoints import SignalEndpoint
+
+    set_tf32(False)
+    rng = np.random.default_rng(27)
+    host = rng.normal(size=SIGNAL_SHAPE).astype(np.float32)
+    x_cpu = torch.from_numpy(host)
+    x_dev = x_cpu.to(dev)
+
+    def outputs(out) -> dict:
+        return out if isinstance(out, dict) else {"prob": out}
+
+    # 27. every zoo model, card against CPU, the same weights
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    worst = 0.0
+    for i, name in enumerate(MODEL_ZOO):
+        cpu_model = build_signal_model(name, device="cpu", seed=i)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        with torch.inference_mode():
+            want = outputs(cpu_model(x_cpu))
+            got = outputs(card_model(x_dev))
+        torch.cuda.synchronize()
+        check(set(got) == set(want), f"zoo {name}: keys {sorted(got)}")
+        errs = {}
+        for k in want:
+            g = got[k].float().cpu()
+            check(g.shape == want[k].shape and bool(torch.isfinite(g).all()),
+                  f"zoo {name}: {k} of shape {tuple(g.shape)} or not finite")
+            errs[k] = max_abs_err(g, want[k])
+        err = max(errs.values())
+        check(err <= SIGNAL_TOL, f"zoo {name}: card differs from the CPU by "
+              f"{err:.3g} > {SIGNAL_TOL} ({errs})")
+        worst = max(worst, err)
+        n_params = sum(p.numel() for p in card_model.parameters())
+        print(f"[27 zoo {name}] {n_params} parameters, outputs "
+              + ", ".join(f"{k} {tuple(v.shape)} max |err| {errs[k]:.3g}"
+                          for k, v in want.items()), flush=True)
+        del cpu_model, card_model
+    zoo_counts = launch_counts(counters)
+    check(zoo_counts == none, f"the signal zoo launched {zoo_counts}")
+    print(f"[27 zoo] {len(MODEL_ZOO)} models at {SIGNAL_SHAPE} f32, TF32 "
+          f"off, card vs CPU with the same weights: worst max |err| "
+          f"{worst:.3g} (limit {SIGNAL_TOL}); launches {zoo_counts} (the "
+          f"signal path has no kernel); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 28. HybridBinary served
+    t0 = time.perf_counter()
+    cpu_model = build_signal_model("HybridBinary", device="cpu", seed=28)
+    ep = SignalEndpoint(build_signal_model("HybridBinary", device=dev,
+                                           seed=28), device=dev)
+    cpu_ep = SignalEndpoint(cpu_model, device="cpu")
+    reset_counts(counters)
+    served = {}
+    for shape in (SIGNAL_SHAPE, SIGNAL_RAGGED):
+        req = rng.normal(size=shape).astype(np.float32)
+        got, want = ep.predict(req), cpu_ep.predict(req)
+        check(got["prob"].shape == shape[:2]
+              and bool(np.isfinite(got["prob"]).all()),
+              f"endpoint {shape}: prob {got['prob'].shape}")
+        err = float(np.abs(got["prob"] - want["prob"]).max())
+        check(err <= SIGNAL_TOL, f"endpoint {shape}: card differs from the "
+              f"CPU by {err:.3g}")
+        agree = float((got["pred"] == want["pred"]).mean())
+        served[shape] = (err, agree)
+    request = rng.normal(size=SIGNAL_SHAPE[1:]).astype(np.float32)
+    stdout = io.StringIO()
+    serve_signals(ep, stdin=io.StringIO(json.dumps(
+        {"signals": request.tolist()})), stdout=stdout)
+    payload = json.loads(stdout.getvalue())
+    bridge_err = float(np.abs(np.asarray(payload["prob"])
+                              - cpu_ep.predict(request)["prob"]).max())
+    check(set(payload) == {"prob", "pred"}
+          and np.asarray(payload["prob"]).shape == (1, SIGNAL_SHAPE[1])
+          and bridge_err <= SIGNAL_TOL,
+          f"bridge: keys {sorted(payload)}, error {bridge_err:.3g}")
+    spec, defects = accuracy.harness_volumes([VOLUME_SEEDS[0]], 1)[0]
+    path = os.path.join(HERE, "build", "chip_smoke_signal", "vol0.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    synthetic.write_json_volume(path, spec, defects)
+    vol = parse_json_volume(path)
+    heat = prediction_map(ep.predict, vol)
+    heat_err = float(np.abs(heat - prediction_map(cpu_ep.predict,
+                                                  vol)).max())
+    check(bool(np.isfinite(heat).all()) and heat_err <= SIGNAL_TOL,
+          f"prediction map {heat.shape}: error {heat_err:.3g}")
+    served_counts = launch_counts(counters)
+    check(served_counts == none, f"the served path launched {served_counts}")
+    print(f"[28 signal served] HybridBinary, published widths, f32: endpoint "
+          + "; ".join(f"{s} max |err| {e:.3g}, pred agrees on {a:.4f}"
+                      for s, (e, a) in served.items())
+          + f" (each answered at its own shape); bridge {tuple(request.shape)}"
+          f" request answered {list(payload)}, max |err| {bridge_err:.3g}; "
+          f"prediction map {heat.shape} of volume seed {VOLUME_SEEDS[0]} "
+          f"max |err| {heat_err:.3g}; launches {served_counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the endpoint's throughput, host numpy in and out
+    ascans = SIGNAL_SHAPE[0] * SIGNAL_SHAPE[1]
+    for _ in range(3):
+        ep.predict(host)
+    turns = []
+    for _ in range(SIGNAL_TURNS):
+        t1 = time.perf_counter()
+        for _ in range(SIGNAL_CALLS):
+            ep.predict(host)
+        turns.append(ascans * SIGNAL_CALLS / (time.perf_counter() - t1))
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: ep.model(x_dev))
+    predict_ms = time_ms(lambda: ep.predict(host))
+    print(f"[28 signal throughput] SignalEndpoint.predict at "
+          f"{SIGNAL_SHAPE} f32 from host numpy: median "
+          f"{statistics.median(turns):.1f} A-scans/s "
+          f"{[round(t, 1) for t in turns]} ({SIGNAL_TURNS} turns of "
+          f"{SIGNAL_CALLS} calls, host clock, copies included); one forward "
+          f"on card tensors {fwd_ms:.4f} ms, one predict {predict_ms:.4f} "
+          f"ms (CUDA events, median of 30)", flush=True)
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -2762,6 +2924,7 @@ def main() -> None:
     kernels += yolo_flavour_phases(torch, dev, counters, wrappers, none)
     yolo_train_phase(torch, dev, counters, none)
     kernels += temporal_train_phase(torch, dev, counters, wrappers, none)
+    signal_phases(torch, dev, counters, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

@@ -12,10 +12,17 @@ entry of the module's ``state_dict()`` by its leaf name:
   (kh, kw, in, out) becomes ``K[::-1, ::-1]`` as (in, out, kh, kw). The JAX
   ``ConvTranspose`` (``transpose_kernel=False``) correlates the dilated
   input with its kernel, torch's layer with the spatially flipped one;
+- a 3-d (1-d conv) kernel (k, in, out) becomes ``nn.Conv1d``'s
+  (out, in, k); a depthwise one, (k, 1, C), becomes (C, 1, k) by the same
+  permutation;
 - ``<p>.scale``     -> ``<p>.scale`` where the module has one
-  (``LearnableAffine``), else ``<p>.weight`` (BatchNorm, LayerNorm);
+  (``LearnableAffine``, ``RMSNorm``), else ``<p>.weight`` (BatchNorm,
+  GroupNorm, LayerNorm);
 - ``<p>.bias``      -> ``<p>.bias``;
 - ``<p>.embedding`` -> ``<p>.weight``;
+- any other leaf (``RelativePositionEncoding.encoding``, the pattern
+  models' ``background_reference`` and ``background_prototypes``) keeps
+  its path;
 - batch_stats ``<p>.mean``/``<p>.var`` -> ``<p>.running_mean``/``running_var``;
 - a JAX ``GRUCell`` (``<p>.GRUCell_0`` the forward cell, ``<p>.GRUCell_1``
   the backward one, as the reference's ``BiGRU`` names them) -> the
@@ -139,6 +146,8 @@ def port_state_dict(variables: Mapping, target_keys,
                 t = t.flip(0, 1).permute(2, 3, 0, 1)
             elif t.dim() == 4:
                 t = t.permute(3, 2, 0, 1)
+            elif t.dim() == 3:
+                t = t.permute(2, 1, 0)
             elif t.dim() == 2:
                 t = t.t()
         elif leaf == "scale":

@@ -37,6 +37,11 @@ class ScanInfo:
         return self.label != HEALTH_LABEL
 
     @property
+    def binary_label(self) -> float:
+        """0 for a healthy scan, 1 for a defect (the signal labels)."""
+        return float(self.is_defect)
+
+    @property
     def position(self) -> Tuple[float, float]:
         """Defect position with the reference's (0, 0) fallback for healthy scans."""
         if self.defect_range is None:

@@ -6,9 +6,11 @@ from typing import Optional, Union
 
 import torch
 
+# what an entry point's ``device`` argument takes
+Device = Optional[Union[str, torch.device]]
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
+
+def resolve_device(device: Device = None) -> torch.device:
     """``None`` means ``"cuda"``. A CUDA device without a card raises:
     the port never drops to the CPU unless the caller asks for it."""
     dev = torch.device("cuda" if device is None else device)

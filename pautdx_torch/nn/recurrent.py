@@ -2,7 +2,8 @@
 
 Counterpart of ``pautdx/nn/recurrent.py``. Ported: ``BiGRU``, the
 temporal D-FINE v3's context aggregator. ``BiLSTM`` and the aggregators
-around it belong to the signal models (ROADMAP.md, queue 1, item 11).
+around it belong to the signal models' training half (ROADMAP.md, queue
+1, item 11b).
 
 The reference runs its two GRU cells with ``lax.scan``, outside any
 Pallas kernel, so the port runs one bidirectional GRU through

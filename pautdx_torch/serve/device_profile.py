@@ -6,6 +6,7 @@
     python -m pautdx_torch.serve.device_profile train    # D-FINE training
     python -m pautdx_torch.serve.device_profile hf       # HF D-FINE predict
     python -m pautdx_torch.serve.device_profile temporal # temporal D-FINE
+    python -m pautdx_torch.serve.device_profile signal   # HybridBinary served
 
 Builds the serving model of ``throughput.build_serving_model`` (an
 8 x 128-frame slab), the predictor of
@@ -14,7 +15,10 @@ or ``yolo_config("yolov9c-seg")`` for ``yolo9c``), the f32
 predictor of ``dfine_predict.build_dfine_predictor`` (the HF-architecture
 D-FINE, a 4 x 32-frame slab), the temporal D-FINE v3 of
 ``temporal_predict.build_temporal_model`` (bf16, a 4 x 50-frame 640px
-uint8 slab, 50 frames a chunk) or the trainer of
+uint8 slab, 50 frames a chunk), HybridBinary at its published widths
+through ``endpoints.SignalEndpoint`` (one f32 request of (16, 50, 320)
+host signals, the copies to and from the card included; a "frame" of
+this path is one A-scan, 800 a request) or the trainer of
 ``train.detector.build_dfine_trainer`` (one step of a 16-frame 640px
 batch, from numpy through the trainer's input pipeline), runs it once
 warm, times three more runs (each to a synchronize, and three back to
@@ -28,6 +32,9 @@ operators by self device time and the top 30 kernels by device time; for
 traced step (the ``losses.detr.SOLVE_SPAN`` spans of the trace); for
 ``temporal``, the device and host time of each part of a chunk (the
 trunk, the temporal encoder, the attention pool, the GRU and the heads),
+and for ``signal`` of each part of HybridBinary (the conv stack, the
+shared MLP, the position encoding, and over the encoder's layers the
+attention, LocalAttention's depthwise convs, the LayerNorms and the FFN),
 from ``torch.profiler.record_function`` ranges that forward hooks open
 around those modules in the traced run only. The last line is one JSON
 object with the same numbers. TF32 is off, as in
@@ -49,7 +56,9 @@ from torch.autograd import DeviceType
 
 from pautdx_torch.device import resolve_device
 from pautdx_torch.losses import detr
+from pautdx_torch.models.signal import build_signal_model
 from pautdx_torch.serve import dfine_predict, temporal_predict, yolo_predict
+from pautdx_torch.serve.endpoints import SignalEndpoint
 from pautdx_torch.serve.throughput import (
     build_serving_model, make_streaming_forward, make_uint8_slab,
 )
@@ -88,10 +97,32 @@ TEMPORAL_PARTS = {
 }
 
 
+# the served signal request: HybridBinary over (batch, signals, samples)
+SIGNAL_SHAPE = (16, 50, 320)
+
+
+def signal_parts(num_layers: int) -> Dict[str, Tuple[str, ...]]:
+    """The parts of HybridBinary, each a span of the traced run."""
+    layers = [f"encoder.layer_{i}" for i in range(num_layers)]
+    return {
+        "signal.conv": ("conv",),
+        "signal.mlp": ("shared1", "shared2"),
+        "signal.pos_enc": ("pos_enc",),
+        "signal.attention": tuple(f"{l}.self_attn" for l in layers),
+        "signal.local_attention": tuple(f"{l}.local_attn" for l in layers),
+        "signal.layer_norm": tuple(f"{l}.norm{j}" for l in layers
+                                   for j in (1, 2, 3)),
+        "signal.ffn": tuple(f"{l}.Dense_{j}" for l in layers
+                            for j in (0, 1)),
+        "signal.classifier": ("classifier",),
+    }
+
+
 @contextmanager
 def module_spans(model: nn.Module, parts: Dict[str, Tuple[str, ...]]):
-    """For a while, each call of the submodules named in ``parts`` runs
-    inside a ``record_function`` range named by its part."""
+    """For a while, each call of the submodules named in ``parts`` (dotted
+    paths; absent ones skipped) runs inside a ``record_function`` range
+    named by its part."""
     stack = ExitStack()
     open_ranges: List[torch.profiler.record_function] = []
 
@@ -108,8 +139,9 @@ def module_spans(model: nn.Module, parts: Dict[str, Tuple[str, ...]]):
     with stack:
         for label, names in parts.items():
             for name in names:
-                module = getattr(model, name, None)
-                if module is None:
+                try:
+                    module = model.get_submodule(name)
+                except AttributeError:
                     continue
                 stack.callback(module.register_forward_pre_hook(
                     pre(label)).remove)
@@ -118,40 +150,50 @@ def module_spans(model: nn.Module, parts: Dict[str, Tuple[str, ...]]):
 
 
 def _path(name: str, dev: torch.device
-          ) -> Tuple[Callable, int, int, nn.Module]:
+          ) -> Tuple[Callable, int, int, nn.Module, Dict]:
     """One run of a path as a callable, with its steps and batch and, for
-    ``temporal``, the model whose parts get spans: a serving path's
-    streaming loop over a slab, or one training step."""
+    ``temporal`` and ``signal``, the model and the parts of it that get
+    spans: a serving path's streaming loop over a slab, one signal
+    request, or one training step."""
     if name == "dfine":
         served = build_serving_model(device=dev, batch=128, seed=0)
         stream = make_streaming_forward(served.model)
         slab = make_uint8_slab(served.slab_shape(8), seed=1, device=dev)
-        return lambda: stream(slab), 8, 128, None
+        return lambda: stream(slab), 8, 128, None, {}
     if name in ("yolo", "yolo9c"):
         config = "yolov8n-seg" if name == "yolo" else "yolov9c-seg"
         predictor = yolo_predict.build_yolo_predictor(
             device=dev, seed=0, cfg=yolo_predict.yolo_config(config))
         stream = yolo_predict.make_yolo_stream(predictor)
         slab = yolo_predict.make_frame_slab(4, 32, seed=1, device=dev)
-        return lambda: stream(slab), 4, 32, None
+        return lambda: stream(slab), 4, 32, None, {}
     if name == "hf":
         predictor = dfine_predict.build_dfine_predictor(device=dev, seed=0)
         stream = dfine_predict.make_dfine_stream(predictor)
         slab = make_uint8_slab((4, 32, 640, 640, 3), seed=1, device=dev)
-        return lambda: stream(slab), 4, 32, None
+        return lambda: stream(slab), 4, 32, None, {}
     if name == "temporal":
         model = temporal_predict.build_temporal_model(device=dev, seed=0)
         stream = temporal_predict.make_temporal_stream(model)
         slab = make_uint8_slab((4, temporal_predict.SEQ_LEN, 640, 640, 3),
                                seed=1, device=dev)
-        return lambda: stream(slab), 4, temporal_predict.SEQ_LEN, model
+        return (lambda: stream(slab), 4, temporal_predict.SEQ_LEN, model,
+                TEMPORAL_PARTS)
+    if name == "signal":
+        model = build_signal_model("HybridBinary", device=dev, seed=0)
+        ep = SignalEndpoint(model, device=dev)
+        signals = torch.randn(SIGNAL_SHAPE, generator=torch.Generator()
+                              .manual_seed(1)).numpy()
+        b, n, _ = SIGNAL_SHAPE
+        return (lambda: ep.predict(signals), 1, b * n, model,
+                signal_parts(model.encoder.num_layers))
     if name == "train":
         trainer = build_dfine_trainer(device=dev, seed=0)
         batch = make_train_batches(1, 16, seed=1)
         state = trainer.init(batch[0])
-        return lambda: trainer.train_epoch(state, batch), 1, 16, None
+        return lambda: trainer.train_epoch(state, batch), 1, 16, None, {}
     raise ValueError(f"device_profile: no path {name!r}; dfine, yolo, "
-                     f"yolo9c, hf, temporal or train")
+                     f"yolo9c, hf, temporal, signal or train")
 
 
 def main(path: str = "dfine") -> Dict:
@@ -159,7 +201,7 @@ def main(path: str = "dfine") -> Dict:
     # float32 stays float32, as in chip_smoke.py: no TF32 in cuDNN or GEMMs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, n_steps, batch, model = _path(path, dev)
+    run, n_steps, batch, model, part_names = _path(path, dev)
     run()
     torch.cuda.synchronize()
     # the run's wall time without the profiler, whose own host cost
@@ -183,7 +225,7 @@ def main(path: str = "dfine") -> Dict:
     chained_us = start.elapsed_time(end) * 1e3 / 3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    spans = (module_spans(model, TEMPORAL_PARTS) if model is not None
+    spans = (module_spans(model, part_names) if model is not None
              else ExitStack())
     with spans, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -212,7 +254,7 @@ def main(path: str = "dfine") -> Dict:
               and e.name == detr.SOLVE_SPAN]
     parts = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in TEMPORAL_PARTS:
+        if e.device_type == DeviceType.CPU and e.name in part_names:
             rec = parts.setdefault(e.name, {"calls": 0, "device_ms": 0.0,
                                             "host_ms": 0.0})
             rec["calls"] += 1

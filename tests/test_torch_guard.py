@@ -32,7 +32,7 @@ def test_importing_the_port_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(" ", 1)
-    assert int(n) >= 52
+    assert int(n) >= 70
     assert bad.strip() == "[]"
 
 

@@ -227,9 +227,12 @@ def test_encoder_matches_reference():
         got = port(_torch(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
-    for flavour in ("hybrid", "cross_shift"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Encoder(1, 32, 4, 64, flavour=flavour)
+    # the signal models' flavours build too (their parity:
+    # tests/test_torch_signal_nn.py)
+    for flavour, layer in (("hybrid", "HybridEncoderLayer"),
+                           ("cross_shift", "CrossShiftEncoderLayer")):
+        built = Encoder(1, 32, 4, 64, flavour=flavour).layer_0
+        assert type(built).__name__ == layer
 
 
 def _bigru_case(seed):
