@@ -7,9 +7,11 @@ PAUT volumes, the temporal D-FINE serving path (50-frame sequences
 through the chunked runner and the frames bridge), the YOLOv9c-seg,
 YOLO11n and YOLOv5su 640px predict paths, YOLO training and temporal
 D-FINE training through their entry points, and the signal domain: the
-21-model zoo and HybridBinary served through ``SignalEndpoint``.
+21-model zoo and HybridBinary served through ``SignalEndpoint``, then
+trained through ``train.signal.train_signal``.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --signal-train    # phases 29-31 alone
 
 Phases, one line each, in order; any failure exits non-zero:
 
@@ -217,7 +219,38 @@ Phases, one line each, in order; any failure exits non-zero:
     against CPU; then A-scans per second through the endpoint from host
     numpy, host copies included (``SIGNAL_TURNS`` turns of
     ``SIGNAL_CALLS`` calls, the median turn beside all turns), and the
-    device ms of one forward and of one ``predict`` by CUDA events.
+    device ms of one forward and of one ``predict`` by CUDA events;
+29. signal steps, card against CPU: HybridBinary/``detection``,
+    ``SignalSequenceDetector`` and its Enhanced variant/``seq_detector``,
+    ``Hybrid1DDetLoc``/``detloc_criterion``, MSC3Out/
+    ``detection_position``, EnhancedPosition/``enhanced_position``,
+    TwoStage/``two_stage`` and Hybrid/``detection_position`` under
+    ``HybridPhases``' joint groups, each at its published widths, one
+    ``Trainer.train_step`` at (2, 50, 320) f32, TF32 off, dropout 0, from
+    the same weights on the card, on the CPU in f32 and on the CPU in
+    float64: the card's loss within 1e-4 (relative), each gradient leaf
+    within 1e-3 in norm (a leaf under ``grad_floor`` within the floor)
+    and the BN statistics within 1e-5 of the float64 step's, each limit
+    raised to twice the CPU f32 step's own error; each pair's worst leaf
+    printed; no kernel launches;
+30. HybridBinary trained: ``train_signal`` over the harness's volumes of
+    ``VOLUME_SEEDS`` as JSON, two epochs at batch 8 of (50, 320) with the
+    recipe's plateau and dropout 0.15 from the trainer's seeded
+    generator; ``restore_signal_model``, ``SignalEndpoint`` on it within
+    1e-6 of its forward (and of the trained model when the best epoch is
+    the last), ``SignalEvaluator``'s report, a ``prediction_map``; the
+    loss falling over 20 steps on one batch, ms/step (six turns, the
+    median beside all turns) and peak memory at (8, 50, 320); then 20
+    steps of ``RECIPES["seq_detector"]`` with ``SignalSequenceDetector``
+    at published width, ms/step;
+31. ``HybridPhases``' phase 1 on Hybrid (the frozen groups bit-equal),
+    ``SNRCurriculum`` with two 1-epoch stages (a fresh controller each,
+    each from lr scale 1.0), ``train_autoencoder`` with
+    ``anomaly_threshold`` and ``detect_anomalies``, ``find_gates`` and
+    ``gate_mask`` against the numpy mask, and
+    ``export_signal_model(HybridBinary)`` saved as ``.pt2``, loaded and
+    run on the card within 1e-5 of eager at batches 2 and 5; no kernel
+    launches.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -312,6 +345,11 @@ SIGNAL_RAGGED = (3, 37, 320)
 SIGNAL_TOL = 1e-4
 SIGNAL_TURNS = 6
 SIGNAL_CALLS = 20
+# phases 29-31: the signal domain trained
+SIGNAL_CHECK_SHAPE = (2, 50, 320)   # phase 29's card-against-CPU steps
+SIGNAL_TRAIN_SHAPE = (8, 50, 320)   # the detection recipe's batch
+SIGNAL_LOSS_STEPS = 20
+SIGNAL_TRAIN_TURN = 10
 
 
 def fail(msg: str) -> None:
@@ -2533,6 +2571,425 @@ def signal_phases(torch, dev, counters: dict, none: dict) -> None:
           f"ms (CUDA events, median of 30)", flush=True)
 
 
+def _dropout_off(model):
+    """Every ``nn.blocks.Dropout`` of ``model`` at rate 0: the card's and
+    the CPU's masks come from different generators."""
+    from pautdx_torch.nn.blocks import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def _seeded(build, seed: int):
+    """``build()`` with torch's global generator seeded, restored after."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+def signal_batch(rng, shape) -> dict:
+    """A host batch of the signal schema: normal signals, labels of rate
+    0.3, sorted (start, end) on the defects, a full sample mask."""
+    b, n, _ = shape
+    labels = (rng.random((b, n)) < 0.3).astype(np.float32)
+    pos = np.sort(rng.uniform(0.1, 0.9, (b, n, 2)), -1).astype(np.float32)
+    return {"signals": rng.normal(size=shape).astype(np.float32),
+            "labels": labels, "positions": pos * labels[..., None],
+            "sample_mask": np.ones(b, np.float32)}
+
+
+def trainer_step(model, objective, spec, batch: dict) -> tuple:
+    """One ``Trainer.train_step`` of ``model`` (on its device) over the
+    host ``batch``: (loss, the clipped gradients the optimizer applied,
+    the float buffers after the step), all on the CPU in float64."""
+    import torch
+
+    from pautdx_torch.train.trainer import Trainer
+
+    seen = {}
+
+    def captured(out, b):
+        loss, aux = objective(out, b)
+        seen["loss"] = loss.detach()
+        return loss, aux
+
+    trainer = Trainer(model, captured, spec)
+    state = trainer.init(batch)
+    _, row = trainer.train_epoch(state, [batch])
+    check(row["update_was_finite"] == 1.0, "signal step: update refused")
+    return (float(seen["loss"]),
+            {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()},
+            {n: b.detach().double().cpu() for n, b in model.named_buffers()
+             if b.is_floating_point()})
+
+
+def signal_step_check(torch, dev, name: str, build, objective, spec,
+                      batch: dict) -> str:
+    """Phase 29's rule for one model and objective: one step on the card,
+    on the CPU in f32 and on the CPU in float64 from the same weights,
+    dropout 0; the card's loss within 1e-4 (relative), each gradient leaf
+    within 1e-3 in norm (relative; a leaf under the floor of
+    ``grad_floor`` within that floor, absolute) and the BN statistics
+    within 1e-5 of the float64 step's, each limit raised to twice the CPU
+    f32 step's own error. Returns the report line."""
+    import copy
+
+    cpu_model = _dropout_off(build())
+    f64_batch = {k: v.astype(np.float64) for k, v in batch.items()}
+    ref = trainer_step(copy.deepcopy(cpu_model).double(), objective, spec,
+                       f64_batch)
+    card = trainer_step(copy.deepcopy(cpu_model).to(dev), objective, spec,
+                        batch)
+    cpu = trainer_step(cpu_model, objective, spec, batch)
+
+    def errors(got) -> tuple:
+        leaves = leaf_errors(got[1], ref[1])
+        noise = {n: (got[1][n] - w).norm().item()
+                 for n, w in ref[1].items() if n not in leaves}
+        bn = max((max_abs_err(got[2][k], ref[2][k]) for k in ref[2]),
+                 default=0.0)
+        return abs(got[0] - ref[0]) / abs(ref[0]), leaves, noise, bn
+
+    c_loss, c_leaves, c_noise, c_bn = errors(card)
+    o_loss, o_leaves, o_noise, o_bn = errors(cpu)
+    floor = grad_floor(ref[1])
+    loss_lim = max(TRAIN_LOSS_TOL, 2 * o_loss)
+    bn_lim = max(1e-5, 2 * o_bn)
+    check(c_loss <= loss_lim, f"{name} step: card loss error {c_loss:.3g} "
+          f"> {loss_lim:.3g}")
+    check(c_bn <= bn_lim, f"{name} step: card BN error {c_bn:.3g} > "
+          f"{bn_lim:.3g}")
+    worst = ("", 0.0, TRAIN_GRAD_TOL)
+    for n, e in c_leaves.items():
+        lim = max(TRAIN_GRAD_TOL, 2 * o_leaves[n])
+        check(e <= lim, f"{name} step: gradient of {n} off by {e:.3g} in "
+              f"norm > {lim:.3g}")
+        if e / lim > worst[1] / worst[2]:
+            worst = (n, e, lim)
+    for n, e in c_noise.items():
+        lim = max(floor, 2 * o_noise[n])
+        check(e <= lim, f"{name} step: gradient of {n} (under the floor "
+              f"{floor:.3g}) off by {e:.3g} > {lim:.3g}")
+    return (f"{name}: loss {card[0]:.5f} (float64 {ref[0]:.5f}, err "
+            f"{c_loss:.3g}, CPU f32 {o_loss:.3g}), worst leaf {worst[0]} "
+            f"{worst[1]:.3g} (limit {worst[2]:.3g}; {len(c_leaves)} leaves, "
+            f"{len(c_noise)} under the floor), BN {c_bn:.3g} (CPU f32 "
+            f"{o_bn:.3g})")
+
+
+def signal_train_phases(torch, dev, counters: dict, none: dict) -> None:
+    """Phases 29-31: the signal domain trained on the card (no kernel)."""
+    import copy
+
+    from pautdx_torch.data.datasets import (
+        BatchIterator, load_json_dir, train_val_split,
+    )
+    from pautdx_torch.data.volume import parse_json_volume
+    from pautdx_torch.eval.report import SignalEvaluator, prediction_map
+    from pautdx_torch.losses.heatmap import detloc_criterion
+    from pautdx_torch.models.signal import (
+        EnhancedSignalSequenceDetector, Hybrid1DDetLoc, HybridModel,
+        SignalSequenceDetector, build_signal_model,
+    )
+    from pautdx_torch.serve.endpoints import SignalEndpoint
+    from pautdx_torch.serve.export import export_signal_model, load_exported
+    from pautdx_torch.train import anomaly
+    from pautdx_torch.train.checkpoint import CheckpointManager
+    from pautdx_torch.train.optim import ReduceLROnPlateau, make_optimizer
+    from pautdx_torch.train.recipes import (
+        RECIPES, HybridPhases, SNRCurriculum,
+    )
+    from pautdx_torch.train.signal import (
+        recipe_optimizer, restore_signal_model, train_signal,
+    )
+    from pautdx_torch.train.trainer import Trainer
+    from pautdx_torch.utils.autogates import find_gates, gate_mask
+
+    set_tf32(False)
+    rng = np.random.default_rng(29)
+    s_len = SIGNAL_TRAIN_SHAPE[2]
+
+    # 29. each model against its objective, card against CPU
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    step_batch = signal_batch(rng, SIGNAL_CHECK_SHAPE)
+    det = RECIPES["detection_position"]
+
+    def detloc(out, batch):
+        return detloc_criterion(out, batch["labels"], batch["positions"],
+                                s_len)
+
+    joint = HybridPhases().phase_masks()[2]
+    pairs = [
+        ("HybridBinary/detection",
+         lambda: build_signal_model("HybridBinary", device="cpu", seed=29),
+         RECIPES["detection"]),
+        ("SignalSequenceDetector/seq_detector",
+         lambda: _seeded(lambda: SignalSequenceDetector(device="cpu"), 29),
+         RECIPES["seq_detector"]),
+        ("EnhancedSignalSequenceDetector/seq_detector",
+         lambda: _seeded(lambda: EnhancedSignalSequenceDetector(
+             device="cpu"), 29), RECIPES["seq_detector"]),
+        ("Hybrid1DDetLoc/detloc_criterion",
+         lambda: _seeded(lambda: Hybrid1DDetLoc(device="cpu"), 29),
+         (detloc, make_optimizer())),
+        ("MSC3Out/detection_position",
+         lambda: build_signal_model("MSC3Out", device="cpu", seed=29), det),
+        ("EnhancedPosition/enhanced_position",
+         lambda: build_signal_model("EnhancedPosition", device="cpu",
+                                    seed=29), RECIPES["enhanced_position"]),
+        ("TwoStage/two_stage",
+         lambda: build_signal_model("TwoStage", device="cpu", seed=29),
+         RECIPES["two_stage"]),
+        ("Hybrid/detection_position, HybridPhases' joint groups",
+         lambda: build_signal_model("Hybrid", device="cpu", seed=29),
+         (det.make_objective(), make_optimizer(
+             det.learning_rate, det.weight_decay, det.clip_norm,
+             group_lr_mults=joint,
+             group_patterns=HybridPhases.group_patterns()))),
+    ]
+    found = []
+    for name, build, how in pairs:
+        objective, spec = (how if isinstance(how, tuple) else
+                           (how.make_objective(), recipe_optimizer(how, 10)))
+        found.append(signal_step_check(torch, dev, name, build, objective,
+                                       spec, step_batch))
+        print(f"[29 signal step] {found[-1]}", flush=True)
+    counts = launch_counts(counters)
+    check(counts == none, f"the signal steps launched {counts}")
+    print(f"[29 signal steps] {len(pairs)} models at published widths, one "
+          f"Trainer.train_step each at {SIGNAL_CHECK_SHAPE} f32, TF32 off, "
+          f"dropout 0, card against the same step on the CPU in f32 and "
+          f"float64 from the same weights: all within phase 25's rule "
+          f"(loss {TRAIN_LOSS_TOL}, each gradient leaf {TRAIN_GRAD_TOL} in "
+          f"norm, BN 1e-5, or twice the CPU f32 step's own error); launches "
+          f"{counts}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 30. HybridBinary trained through train_signal
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_signal_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "volumes")
+    write_signal_volumes(data_dir)
+    ds = load_json_dir(data_dir, seq_len=SIGNAL_TRAIN_SHAPE[1])
+    reset_counts(counters)
+    ck = os.path.join(root, "ckpt")
+    trainer, state = train_signal(
+        data_dir, ck, epochs=2, batch_size=SIGNAL_TRAIN_SHAPE[0],
+        seq_len=SIGNAL_TRAIN_SHAPE[1], signal_length=s_len, seed=30,
+        device=dev, log=lambda m: print(f"    {m}", flush=True))
+    counts = launch_counts(counters)
+    check(counts == none, f"train_signal launched {counts}")
+    hist = trainer.history
+    check(all(np.isfinite(hist["train_bce"])) and hist["epoch"] == [0, 1],
+          f"train_signal history {hist}")
+    fit_s = time.perf_counter() - t0
+    model, meta = restore_signal_model(ck, device=dev)
+    saved, _ = CheckpointManager(ck).restore(meta["step"])
+    check(all(torch.equal(v.cpu(), {**saved["params"],
+                                    **saved["batch_stats"]}[k])
+              for k, v in model.state_dict().items()),
+          "restore_signal_model: weights differ from the checkpoint")
+    ep = SignalEndpoint(model, device=dev)
+    probe = rng.normal(size=SIGNAL_TRAIN_SHAPE).astype(np.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(probe).to(dev)).cpu().numpy()
+        trained = state.model.eval()(torch.from_numpy(probe).to(dev)).cpu()
+    got = ep.predict(probe)["prob"]
+    ep_err = float(np.abs(got - want).max())
+    check(ep_err <= 1e-6, f"SignalEndpoint on the restored model: {ep_err}")
+    last = meta["step"] == hist["epoch"][-1]
+    trained_err = float(np.abs(got - trained.numpy()).max())
+    if last:
+        check(trained_err <= 1e-6, f"the restored best epoch is the last, "
+              f"yet differs from the trained model by {trained_err}")
+    report = SignalEvaluator(ep.predict, threshold=0.5).run(ds)
+    vol = parse_json_volume(os.path.join(data_dir, "vol0.json"))
+    heat = prediction_map(ep.predict, vol)
+    check(bool(np.isfinite(heat).all()), "prediction map not finite")
+    print(f"[30 train_signal] HybridBinary/detection over the harness's "
+          f"volumes {list(VOLUME_SEEDS)} as JSON ({len(ds)} sequences of "
+          f"{SIGNAL_TRAIN_SHAPE[1]} x {s_len}), 2 epochs at batch "
+          f"{SIGNAL_TRAIN_SHAPE[0]}, dropout 0.15 from the trainer's seeded "
+          f"generator: train bce {[round(v, 4) for v in hist['train_bce']]}, "
+          f"val loss {[round(v, 4) for v in hist.get('val_loss', [])]}, "
+          f"{fit_s:.1f} s; restore_signal_model took epoch {meta['step']} "
+          f"(the best, else the latest; metadata {meta}); SignalEndpoint on it "
+          f"within {ep_err:.3g} of its forward"
+          + (f", {trained_err:.3g} of the trained model" if last else "")
+          + f"; SignalEvaluator accuracy {report['accuracy']:.4f} f1 "
+          f"{report['f1']:.4f} auc {report['auc']:.4f}; prediction map "
+          f"{heat.shape}, mean {float(heat.mean()):.4f}; launches {counts}",
+          flush=True)
+
+    # the loss falling, the timed step and its memory
+    batch = next(iter(BatchIterator(ds, SIGNAL_TRAIN_SHAPE[0], seed=2)))
+    one = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    recipe = RECIPES["detection"]
+    tr = Trainer(build_signal_model("HybridBinary", device=dev, seed=31),
+                 recipe.make_objective(), recipe_optimizer(recipe, 1))
+    st = tr.init(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    rows = [tr.train_step(st, one) for _ in range(SIGNAL_LOSS_STEPS)]
+    losses = [r["bce"] for r in rows]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"HybridBinary: the loss over {len(losses)} steps: {losses}")
+    turns = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SIGNAL_TRAIN_TURN):
+            tr.train_step(st, one)
+        torch.cuda.synchronize()
+        turns.append(1e3 * (time.perf_counter() - t1) / SIGNAL_TRAIN_TURN)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = launch_counts(counters)
+    check(counts == none, f"the HybridBinary steps launched {counts}")
+    print(f"[30 signal train] HybridBinary/detection at "
+          f"{SIGNAL_TRAIN_SHAPE} f32, TF32 off, dropout on: median "
+          f"{statistics.median(turns):.3f} ms/step (six turns of "
+          f"{SIGNAL_TRAIN_TURN} steps, host clock, synchronized: "
+          f"{[round(t, 3) for t in turns]}), peak memory {peak:.3f} GiB; bce "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps on "
+          f"one batch; launches {counts}", flush=True)
+    del tr, st
+
+    # 20 steps of the seq_detector recipe at published width
+    rec = RECIPES["seq_detector"]
+    tr = Trainer(_seeded(lambda: SignalSequenceDetector(device=dev), 30),
+                 rec.make_objective(),
+                 recipe_optimizer(rec, SIGNAL_LOSS_STEPS))
+    st = tr.init(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], []
+    for _ in range(SIGNAL_LOSS_STEPS):
+        t1 = time.perf_counter()
+        rows.append(tr.train_step(st, one))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    lrs = sorted({g["lr"] for g in st.optimizer.adamw.param_groups})
+    check(all(np.isfinite(r["ce"]) for r in rows), "seq_detector: loss")
+    print(f"[30 seq_detector] SignalSequenceDetector (d 128, 4 heads, 4 "
+          f"layers) under RECIPES['seq_detector'] at {SIGNAL_TRAIN_SHAPE}: "
+          f"median {statistics.median(times[5:]):.3f} ms/step over steps "
+          f"5-{SIGNAL_LOSS_STEPS - 1} (host clock, synchronized; all "
+          f"{[round(t, 2) for t in times]}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; total "
+          f"{rows[0]['ce'] + rows[0]['position']:.4f} -> "
+          f"{rows[-1]['ce'] + rows[-1]['position']:.4f} (ce + position); "
+          f"last lr of the three groups {lrs} (cosine over "
+          f"{SIGNAL_LOSS_STEPS} steps)", flush=True)
+    del tr, st
+
+    # 31. phases, curriculum, autoencoder, gates, export
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    hybrid = build_signal_model("Hybrid", device=dev, seed=31)
+    det_mask = HybridPhases().phase_masks()[0]
+    tr = Trainer(hybrid, det.make_objective(), make_optimizer(
+        1e-2, group_lr_mults=det_mask,
+        group_patterns=HybridPhases.group_patterns()))
+    st = tr.init(batch)
+    before = {k: p.detach().clone() for k, p in hybrid.named_parameters()}
+    tr.train_step(st, one)
+    frozen = [k for k in before if not k.startswith("detection.")]
+    moved = [k for k in before if k.startswith("detection.")
+             and not torch.equal(before[k], dict(
+                 hybrid.named_parameters())[k])]
+    check(frozen and all(torch.equal(before[k], dict(
+        hybrid.named_parameters())[k]) for k in frozen) and moved,
+        "HybridPhases: a frozen group moved or detection did not")
+    del tr, st, hybrid
+
+    plateaus = []
+
+    def factory():
+        plateaus.append(ReduceLROnPlateau(patience=0))
+        return plateaus[-1]
+
+    tr_ds, va_ds = train_val_split(ds)
+    ctr = Trainer(build_signal_model("HybridBinary", device=dev, seed=32),
+                  recipe.make_objective(), recipe_optimizer(recipe, 1))
+    cst = ctr.init(batch)
+    SNRCurriculum(pretrain_epochs=1, epochs=1).run(
+        ctr, cst, (lambda: BatchIterator(tr_ds, 8, seed=1),
+                   lambda: BatchIterator(va_ds, 8, shuffle=False,
+                                         drop_remainder=False)),
+        (lambda: BatchIterator(tr_ds, 8, seed=2),
+         lambda: BatchIterator(va_ds, 8, shuffle=False,
+                               drop_remainder=False)),
+        plateau_factory=factory, log=lambda m: None)
+    check(len(plateaus) == 2 and plateaus[0] is not plateaus[1]
+          and ctr.history["lr_scale"] == [1.0, 1.0],
+          f"SNRCurriculum: controllers {plateaus}, lr scales "
+          f"{ctr.history['lr_scale']}")
+    del ctr, cst
+
+    healthy = ds.signals[ds.labels == 0]
+    defective = ds.signals[ds.labels == 1]
+    ae = anomaly.train_autoencoder(healthy, epochs=3, device=dev)
+    thr = anomaly.anomaly_threshold(ae, healthy)
+    flagged_h = anomaly.detect_anomalies(ae, healthy, thr)["is_anomaly"]
+    flagged_d = anomaly.detect_anomalies(ae, defective, thr)["is_anomaly"]
+    check(np.isfinite(thr) and flagged_h.shape == (len(healthy),),
+          f"autoencoder threshold {thr}")
+
+    dscan = vol.signals[vol.beam_keys[0]]
+    gates = find_gates(dscan)
+    a, b = gates[0]
+    x = torch.from_numpy(probe).to(dev)
+    gated = gate_mask(x, a, b).cpu().numpy()
+    keep = (np.arange(s_len) >= a) & (np.arange(s_len) < b)
+    check(np.array_equal(gated, probe * keep), "gate_mask differs from the "
+          "numpy mask")
+
+    path = os.path.join(root, "hybrid_binary.pt2")
+    served = build_signal_model("HybridBinary", device=dev, seed=33)
+    export_signal_model(served, (2,) + SIGNAL_TRAIN_SHAPE[1:], path,
+                        polymorphic_batch=True, device=dev)
+    run = load_exported(path)
+    export_errs = []
+    for bsz in (2, 5):
+        xb = torch.from_numpy(rng.normal(size=(bsz,) + SIGNAL_TRAIN_SHAPE[
+            1:]).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            export_errs.append(max_abs_err(run(xb), served(xb)))
+    check(max(export_errs) <= 1e-5, f"exported HybridBinary: {export_errs}")
+    counts = launch_counts(counters)
+    check(counts == none, f"phase 31 launched {counts}")
+    print(f"[31 signal tools] HybridPhases phase 1 on Hybrid: "
+          f"{len(moved)} detection tensors moved, {len(frozen)} frozen "
+          f"bit-equal; SNRCurriculum(1, 1): two fresh controllers, each "
+          f"stage from lr scale 1.0; train_autoencoder on "
+          f"{len(healthy)} healthy signals: threshold {thr:.5f}, flags "
+          f"{flagged_h.mean():.3f} of the healthy and {flagged_d.mean():.3f} "
+          f"of {len(defective)} defect signals; find_gates {gates}, "
+          f"gate_mask == numpy; export_signal_model(HybridBinary) .pt2 "
+          f"loaded on the card, batches 2 and 5 within "
+          f"{max(export_errs):.3g} of eager; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def write_signal_volumes(data_dir: str) -> None:
+    """The accuracy harness's volumes of ``VOLUME_SEEDS`` as JSON."""
+    from pautdx_torch.data import synthetic
+    from pautdx_torch.eval import accuracy
+
+    os.makedirs(data_dir)
+    for i, (spec, defects) in enumerate(accuracy.harness_volumes(
+            VOLUME_SEEDS, 1)):
+        synthetic.write_json_volume(os.path.join(data_dir, f"vol{i}.json"),
+                                    spec, defects)
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -2583,6 +3040,11 @@ def main() -> None:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    if sys.argv[1:] == ["--signal-train"]:     # phases 29-31 alone
+        print(f"[1 device] {smi_line()}", flush=True)
+        signal_train_phases(torch, dev, counters, none)
+        return
 
     # 1. device
     smi = smi_line()
@@ -2925,6 +3387,7 @@ def main() -> None:
     yolo_train_phase(torch, dev, counters, none)
     kernels += temporal_train_phase(torch, dev, counters, wrappers, none)
     signal_phases(torch, dev, counters, none)
+    signal_train_phases(torch, dev, counters, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

@@ -32,7 +32,13 @@ entry of the module's ``state_dict()`` by its leaf name:
   ``weight_ih`` and their biases into ``bias_ih``; the hidden Denses
   ``hr``/``hz``/``hn`` into ``weight_hh``, and ``bias_hh`` is
   ``[0, 0, b_hn]`` (``hr`` and ``hz`` have no bias). Both compute
-  ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``.
+  ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``;
+- a JAX ``OptimizedLSTMCell`` (``<p>.OptimizedLSTMCell_0`` forward,
+  ``_1`` backward, as ``BiLSTM`` names them) -> the ``torch.nn.LSTM``
+  entries likewise: the input Denses ``ii``/``if``/``ig``/``io`` (no
+  bias) stack as (i, f, g, o) rows into ``weight_ih``, the hidden Denses
+  ``hi``/``hf``/``hg``/``ho`` into ``weight_hh`` and their biases into
+  ``bias_hh``; ``bias_ih`` is 0.
 
 Loading is strict: every parameter and buffer of the module is filled and
 every JAX leaf is used, or a ``KeyError`` names what is missing and what
@@ -77,43 +83,55 @@ def _renamed(path: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
-_GRU_LEAF = re.compile(
-    r"^(?:(.*)\.)?GRUCell_([01])\.(ir|iz|in|hr|hz|hn)\.(kernel|bias)$")
-_GRU_LEAVES = ("ir.kernel", "ir.bias", "iz.kernel", "iz.bias", "in.kernel",
-               "in.bias", "hr.kernel", "hz.kernel", "hn.kernel", "hn.bias")
+_CELL_LEAF = re.compile(
+    r"^(?:(.*)\.)?(GRUCell|OptimizedLSTMCell)_([01])\."
+    r"(ir|iz|in|hr|hz|hn|ii|if|ig|io|hi|hf|hg|ho)\.(kernel|bias)$")
+# each cell kind: (input gates, hidden gates, the gates with a bias)
+_CELL_GATES = {
+    "GRUCell": (("ir", "iz", "in"), ("hr", "hz", "hn"),
+                ("ir", "iz", "in", "hn")),
+    "OptimizedLSTMCell": (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho"),
+                          ("hi", "hf", "hg", "ho")),
+}
 
 
-def _gru_entries(params: Dict[str, np.ndarray]
-                ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The GRU cells among flat params -> {each cell's JAX path: the four
-    ``nn.GRU`` entries it fills}. Raises ``KeyError`` for a cell that
-    lacks one of its ten leaves."""
+def _cell_entries(params: Dict[str, np.ndarray]
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The GRU and LSTM cells among flat params -> {each cell's JAX path:
+    the four ``nn.GRU`` / ``nn.LSTM`` entries it fills}. Raises
+    ``KeyError`` for a cell that lacks one of its leaves."""
     cells: Dict[tuple, Dict[str, torch.Tensor]] = {}
     for path, arr in params.items():
-        m = _GRU_LEAF.match(path)
+        m = _CELL_LEAF.match(path)
         if m:
-            prefix, cell, gate, leaf = m.groups()
-            cells.setdefault((prefix, cell), {})[f"{gate}.{leaf}"] = \
+            prefix, kind, cell, gate, leaf = m.groups()
+            cells.setdefault((prefix, kind, cell), {})[f"{gate}.{leaf}"] = \
                 _to_tensor(arr)
     out = {}
-    for (prefix, cell), g in cells.items():
-        src = f"{prefix}.GRUCell_{cell}" if prefix else f"GRUCell_{cell}"
-        missing = [k for k in _GRU_LEAVES if k not in g]
-        if missing:
-            raise KeyError(f"load_jax_variables: GRU cell {src} lacks "
-                           f"{missing}")
+    for (prefix, kind, cell), g in cells.items():
+        src = f"{prefix}.{kind}_{cell}" if prefix else f"{kind}_{cell}"
+        ins, hids, biased = _CELL_GATES[kind]
+        want = [f"{k}.kernel" for k in ins + hids] + [f"{k}.bias"
+                                                      for k in biased]
+        missing = [k for k in want if k not in g]
+        if missing or len(g) != len(want):
+            raise KeyError(f"load_jax_variables: {kind} {src} lacks "
+                           f"{missing} or has extra leaves {sorted(g)}")
         base = f"{prefix}." if prefix else ""
         sfx = "_reverse" if cell == "1" else ""
-        hn_b = g["hn.bias"]
+
+        zero = torch.zeros_like(g[f"{hids[0]}.kernel"][0])  # (hidden,)
+
+        def bias(gates):
+            return torch.cat([g.get(f"{k}.bias", zero) for k in gates])
+
         out[src] = {
             f"{base}weight_ih_l0{sfx}": torch.cat(
-                [g[f"{k}.kernel"].t() for k in ("ir", "iz", "in")]),
+                [g[f"{k}.kernel"].t() for k in ins]),
             f"{base}weight_hh_l0{sfx}": torch.cat(
-                [g[f"{k}.kernel"].t() for k in ("hr", "hz", "hn")]),
-            f"{base}bias_ih_l0{sfx}": torch.cat(
-                [g[f"{k}.bias"] for k in ("ir", "iz", "in")]),
-            f"{base}bias_hh_l0{sfx}": torch.cat(
-                [torch.zeros_like(hn_b), torch.zeros_like(hn_b), hn_b]),
+                [g[f"{k}.kernel"].t() for k in hids]),
+            f"{base}bias_ih_l0{sfx}": bias(ins),
+            f"{base}bias_hh_l0{sfx}": bias(hids),
         }
     return out
 
@@ -129,14 +147,14 @@ def port_state_dict(variables: Mapping, target_keys,
     out: Dict[str, torch.Tensor] = {}
     unused = []
     params = flatten(variables.get("params", {}))
-    for src, entries in _gru_entries(params).items():
+    for src, entries in _cell_entries(params).items():
         for key, t in entries.items():
             if key in target_keys:
                 out[key] = t.contiguous()
             else:
                 unused.append(f"{src} -> {key}")
     for path, arr in params.items():
-        if _GRU_LEAF.match(path):
+        if _CELL_LEAF.match(path):
             continue
         leaf = path.rpartition(".")[2]
         t = _to_tensor(arr)

@@ -1,9 +1,9 @@
 """The signal domain's (A-scan sequence) model zoo.
 
-Counterpart of ``pautdx/models/signal``, its serving half: the 21 models
-of ``MODEL_ZOO`` and ``DenseAutoencoder``. ``SignalSequenceDetector`` and
-``Hybrid1DDetLoc`` wait for the training half (ROADMAP.md, queue 1, item
-11b).
+Counterpart of ``pautdx/models/signal``: the 21 models of ``MODEL_ZOO``,
+``DenseAutoencoder``, ``SignalSequenceDetector`` and its Enhanced variant
+(``seq_detector.py``) and ``Hybrid1DDetLoc`` (``detloc1d.py``), all at the
+reference's published widths by default.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from torch import nn
 
 from pautdx_torch.device import Device
 from pautdx_torch.models.signal.detection_zoo import MODEL_ZOO  # noqa: F401
+from pautdx_torch.models.signal.detloc1d import Hybrid1DDetLoc  # noqa: F401
 from pautdx_torch.models.signal.enhanced_position import (  # noqa: F401
     EnhancedPositionMSC, FixedEnhancedPositionMSC, HybridModel,
 )
@@ -26,6 +27,9 @@ from pautdx_torch.models.signal.msc import (  # noqa: F401
 )
 from pautdx_torch.models.signal.msc_n import (  # noqa: F401
     MSC3Out, MSC_N, ImprovedMSC,
+)
+from pautdx_torch.models.signal.seq_detector import (  # noqa: F401
+    EnhancedSignalSequenceDetector, SignalSequenceDetector,
 )
 from pautdx_torch.models.signal.two_stage import TwoStageDetector  # noqa: F401
 

@@ -24,7 +24,7 @@ from torch import nn
 
 from pautdx_torch.device import Device, resolve_device
 from pautdx_torch.nn.attention import RelativePositionEncoding
-from pautdx_torch.nn.blocks import ConvStack1D, adaptive_avg_pool1d
+from pautdx_torch.nn.blocks import ConvStack1D, Dropout, adaptive_avg_pool1d
 from pautdx_torch.nn.transformer import Encoder
 
 
@@ -43,7 +43,7 @@ class HybridBinaryModel(nn.Module):
                                 dropout=dropout)
         self.shared1 = nn.Linear(2 * pooled_len, hidden_sizes[0])
         self.shared2 = nn.Linear(hidden_sizes[0], hidden_sizes[1])
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.pos_enc = RelativePositionEncoding(hidden_sizes[1], max_len)
         self.encoder = Encoder(num_transformer_layers, hidden_sizes[1],
                                num_heads, hidden_sizes[2], dropout,

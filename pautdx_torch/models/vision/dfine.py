@@ -40,6 +40,7 @@ from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.hgnet import (
     BatchNorm, HGNetConfig, HGNetV2, init_params,
 )
+from pautdx_torch.nn.blocks import Dropout
 from pautdx_torch.ops import attention, deformable
 
 
@@ -309,8 +310,9 @@ class SCDown(nn.Module):
 
 
 def _dropout(rate: float) -> nn.Module:
-    """``nn.Dropout`` where the reference drops (rate > 0), else nothing."""
-    return nn.Dropout(rate) if rate > 0 else nn.Identity()
+    """``nn.blocks.Dropout`` where the reference drops (rate > 0), else
+    nothing."""
+    return Dropout(rate) if rate > 0 else nn.Identity()
 
 
 class TorchMHA(nn.Module):

@@ -7,9 +7,8 @@ Counterpart of ``pautdx/nn/attention.py``:
 - ``LocalAttention``, depthwise convolutions over the sequence axis (k11
   then k5 in HybridBinary; one conv, k5 or k9, in MSC_N and ImprovedMSC);
 - ``RelativePositionEncoding``, learned additive embeddings sliced to the
-  sequence length, and ``SinusoidalPositionEncoding``.
-``AttentionPool`` waits with the signal models' training half (ROADMAP.md,
-queue 1, item 11b).
+  sequence length, and ``SinusoidalPositionEncoding``;
+- ``AttentionPool``, softmax attention pooling over the sequence axis.
 
 The attention is plain batched matmuls and a softmax, as the reference's
 is einsums outside any Pallas kernel: sequences here are a few dozen
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pautdx_torch.nn.blocks import DepthwiseConv1D
+from pautdx_torch.nn.blocks import DepthwiseConv1D, Dropout
 
 
 class TinyMHA(nn.Module):
@@ -42,7 +41,7 @@ class TinyMHA(nn.Module):
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -113,3 +112,17 @@ class SinusoidalPositionEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.pe[:x.shape[-2]]
+
+
+class AttentionPool(nn.Module):
+    """Softmax pooling over the sequence axis of (..., L, d): weights
+    ``softmax(Dense_0(x))`` over L; returns (pooled (..., d), weights
+    (..., L, 1))."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(d, 1)
+
+    def forward(self, x: torch.Tensor):
+        w = torch.softmax(self.Dense_0(x), dim=-2)
+        return (x * w).sum(dim=-2), w

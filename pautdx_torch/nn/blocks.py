@@ -3,8 +3,9 @@
 Counterpart of ``pautdx/nn/blocks.py``: conv + norm + ReLU stacks,
 background extractors (a depthwise low-pass estimate subtracted from the
 features), multi-scale and dilated parallel convolutions, residual blocks,
-squeeze-excitation, RMSNorm, the dense ``MLP`` and the torch
-``AdaptiveAvgPool1d`` bins.
+squeeze-excitation, RMSNorm, the dense ``MLP``, the torch
+``AdaptiveAvgPool1d`` bins, and the port's ``Dropout``, whose masks come
+from a generator that the trainer hands down.
 
 Layout: the reference's sequence tensors are channels-last (N, L, C); the
 blocks here take and return torch's channels-first (N, C, L), so a model
@@ -32,6 +33,41 @@ from pautdx_torch.models.vision.hgnet import BatchNorm
 GN_EPS = 1e-6       # the reference's GroupNorm and LayerNorm default
 LN_EPS = 1e-6
 GN_GROUPS = 8       # the reference's most GroupNorm groups
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` at rate ``p`` in training mode (kept values scaled by
+    1 / (1 - p), as the reference's), its masks drawn from
+    ``self.generator``.
+
+    ``train.trainer.Trainer`` sets ``generator`` on every ``Dropout`` of
+    its model to a ``torch.Generator`` of its own on the model's device
+    and seeds it before each step from (seed, step), as the reference
+    folds the step into its dropout key; a model outside a trainer draws
+    from torch's global generator (``generator`` None). The generator is
+    an attribute rather than an argument of ``forward`` so that the
+    models' signatures stay those of serving, and rather than a
+    module-level setting so that two trainers in one process do not
+    share it."""
+
+    def __init__(self, p: float):
+        super().__init__(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask.div_(keep)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every ``Dropout`` of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def same_padding(length: int, kernel_size: int, stride: int = 1,
@@ -122,7 +158,7 @@ class ConvStack1D(nn.Module):
             self.add_module(f"ConvBlock1D_{i}", ConvBlock1D(c, f, k,
                                                             norm=norm))
             c = f
-        self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.drop = Dropout(dropout) if dropout > 0 else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
@@ -268,7 +304,7 @@ class MLP(nn.Module):
         for i, f in enumerate(features):
             self.add_module(f"Dense_{i}", nn.Linear(c, f))
             c = f
-        self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.drop = Dropout(dropout) if dropout > 0 else nn.Identity()
         self.final_act = final_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

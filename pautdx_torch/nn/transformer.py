@@ -15,7 +15,7 @@ Module names mirror the reference's parameter tree (``layer_{i}``,
 the auto-named FFN ``Dense_0`` / ``Dense_1``), so weights move leaf by
 leaf. Its LayerNorms are the JAX one's
 default, eps 1e-6, unlike D-FINE's 1e-5. Dropout follows the module's
-training mode.
+training mode and draws from the trainer's generator (``nn.blocks.Dropout``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pautdx_torch.nn.attention import LocalAttention, TinyMHA
+from pautdx_torch.nn.blocks import Dropout
 
 LN_EPS = 1e-6       # the reference's LayerNorm default
 
@@ -40,7 +41,7 @@ class EncoderLayer(nn.Module):
         self.Dense_0 = nn.Linear(d, ffn_dim)
         self.Dense_1 = nn.Linear(ffn_dim, d)
         self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(x + self.drop(self.self_attn(x)))
@@ -63,7 +64,7 @@ class HybridEncoderLayer(nn.Module):
         self.Dense_0 = nn.Linear(d, ffn_dim)
         self.Dense_1 = nn.Linear(ffn_dim, d)
         self.norm3 = nn.LayerNorm(d, eps=LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(x + self.drop(self.self_attn(x)))
@@ -86,7 +87,7 @@ class CrossShiftEncoderLayer(nn.Module):
         self.Dense_0 = nn.Linear(d, ffn_dim)
         self.Dense_1 = nn.Linear(ffn_dim, d)
         self.norm3 = nn.LayerNorm(d, eps=LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(x + self.drop(self.self_attn(x)))

@@ -7,6 +7,7 @@
     python -m pautdx_torch.serve.device_profile hf       # HF D-FINE predict
     python -m pautdx_torch.serve.device_profile temporal # temporal D-FINE
     python -m pautdx_torch.serve.device_profile signal   # HybridBinary served
+    python -m pautdx_torch.serve.device_profile signal_train  # ... trained
 
 Builds the serving model of ``throughput.build_serving_model`` (an
 8 x 128-frame slab), the predictor of
@@ -18,7 +19,9 @@ D-FINE, a 4 x 32-frame slab), the temporal D-FINE v3 of
 uint8 slab, 50 frames a chunk), HybridBinary at its published widths
 through ``endpoints.SignalEndpoint`` (one f32 request of (16, 50, 320)
 host signals, the copies to and from the card included; a "frame" of
-this path is one A-scan, 800 a request) or the trainer of
+this path is one A-scan, 800 a request), HybridBinary's training step
+under the ``detection`` recipe (one (8, 50, 320) f32 batch of seeded
+host signals through ``Trainer.train_epoch``, dropout on) or the trainer of
 ``train.detector.build_dfine_trainer`` (one step of a 16-frame 640px
 batch, from numpy through the trainer's input pipeline), runs it once
 warm, times three more runs (each to a synchronize, and three back to
@@ -36,7 +39,10 @@ and for ``signal`` of each part of HybridBinary (the conv stack, the
 shared MLP, the position encoding, and over the encoder's layers the
 attention, LocalAttention's depthwise convs, the LayerNorms and the FFN),
 from ``torch.profiler.record_function`` ranges that forward hooks open
-around those modules in the traced run only. The last line is one JSON
+around those modules in the traced run only; ``signal_train`` adds the
+whole forward, the criterion and the optimizer's step as parts, and the
+adaptive pool's operators (forward and backward) as ``signal.pool``; the
+backward is the step less those. The last line is one JSON
 object with the same numbers. TF32 is off, as in
 ``chip_smoke.py``. Needs a card; nothing falls back to the CPU.
 """
@@ -63,6 +69,9 @@ from pautdx_torch.serve.throughput import (
     build_serving_model, make_streaming_forward, make_uint8_slab,
 )
 from pautdx_torch.train.detector import build_dfine_trainer, make_train_batches
+from pautdx_torch.train.recipes import RECIPES
+from pautdx_torch.train.signal import recipe_optimizer
+from pautdx_torch.train.trainer import Trainer
 
 TOP = 30
 
@@ -99,6 +108,46 @@ TEMPORAL_PARTS = {
 
 # the served signal request: HybridBinary over (batch, signals, samples)
 SIGNAL_SHAPE = (16, 50, 320)
+
+
+# HybridBinary's training step: the detection recipe's (batch, seq_len,
+# signal_length)
+SIGNAL_TRAIN_SHAPE = (8, 50, 320)
+CRITERION_SPAN = "signal.criterion"
+OPTIMIZER_SPAN = "signal.optimizer"
+
+
+def signal_train_step(dev: torch.device, seed: int = 0):
+    """HybridBinary at published widths in a ``Trainer`` under the
+    ``detection`` recipe, its criterion and optimizer step inside
+    ``record_function`` ranges, and one seeded (8, 50, 320) host batch:
+    (trainer, state, [batch])."""
+    recipe = RECIPES["detection"]
+    objective = recipe.make_objective()
+
+    def criterion(out, batch):
+        with torch.profiler.record_function(CRITERION_SPAN):
+            return objective(out, batch)
+
+    model = build_signal_model("HybridBinary", device=dev, seed=seed)
+    trainer = Trainer(model, criterion, recipe_optimizer(recipe, 1),
+                      seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    b, n, s = SIGNAL_TRAIN_SHAPE
+    batch = {"signals": torch.randn(SIGNAL_TRAIN_SHAPE, generator=gen)
+             .numpy(),
+             "labels": (torch.rand((b, n), generator=gen) < 0.3).float()
+             .numpy(),
+             "sample_mask": torch.ones(b).numpy()}
+    state = trainer.init(batch)
+    step = state.optimizer.step
+
+    def optimizer_step(*args, **kwargs):
+        with torch.profiler.record_function(OPTIMIZER_SPAN):
+            return step(*args, **kwargs)
+
+    state.optimizer.step = optimizer_step
+    return trainer, state, [batch]
 
 
 def signal_parts(num_layers: int) -> Dict[str, Tuple[str, ...]]:
@@ -187,13 +236,20 @@ def _path(name: str, dev: torch.device
         b, n, _ = SIGNAL_SHAPE
         return (lambda: ep.predict(signals), 1, b * n, model,
                 signal_parts(model.encoder.num_layers))
+    if name == "signal_train":
+        trainer, state, batch = signal_train_step(dev)
+        parts = dict(signal_parts(trainer.model.encoder.num_layers))
+        parts["signal.forward"] = ("",)
+        b, n, _ = SIGNAL_TRAIN_SHAPE
+        return (lambda: trainer.train_epoch(state, batch), 1, b * n,
+                trainer.model, parts)
     if name == "train":
         trainer = build_dfine_trainer(device=dev, seed=0)
         batch = make_train_batches(1, 16, seed=1)
         state = trainer.init(batch[0])
         return lambda: trainer.train_epoch(state, batch), 1, 16, None, {}
     raise ValueError(f"device_profile: no path {name!r}; dfine, yolo, "
-                     f"yolo9c, hf, temporal, signal or train")
+                     f"yolo9c, hf, temporal, signal, signal_train or train")
 
 
 def main(path: str = "dfine") -> Dict:
@@ -253,8 +309,9 @@ def main(path: str = "dfine") -> Dict:
               if e.device_type == DeviceType.CPU
               and e.name == detr.SOLVE_SPAN]
     parts = {}
+    span_names = set(part_names) | {CRITERION_SPAN, OPTIMIZER_SPAN}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in part_names:
+        if e.device_type == DeviceType.CPU and e.name in span_names:
             rec = parts.setdefault(e.name, {"calls": 0, "device_ms": 0.0,
                                             "host_ms": 0.0})
             rec["calls"] += 1
@@ -263,6 +320,10 @@ def main(path: str = "dfine") -> Dict:
     ops = [(a.key, a.count, a.self_device_time_total)
            for a in prof.key_averages()
            if a.device_type == DeviceType.CPU and a.self_device_time_total > 0]
+    if path == "signal_train":
+        pool = [(n, us) for n, _, us in ops if "adaptive_avg_pool" in n]
+        parts["signal.pool"] = {"calls": len(pool), "host_ms": 0.0,
+                                "device_ms": sum(us for _, us in pool) / 1e3}
 
     frames = n_steps * batch
     report = {

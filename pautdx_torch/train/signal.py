@@ -1,0 +1,128 @@
+"""Training the signal domain's detectors from JSON PAUT volumes.
+
+Counterpart of the reference CLI's ``train-signal`` and its checkpoint
+loader (``pautdx/cli.py``, ``_cmd_train_signal`` and
+``_load_signal_model``): :func:`train_signal` runs ``load_json_dir`` ->
+``defect_focused`` (optional) -> ``train_val_split`` ->
+``build_signal_model`` -> ``Trainer`` -> ``fit`` with the recipe's
+plateau controller and early stop, checkpointing every epoch;
+:func:`restore_signal_model` rebuilds the model of a checkpoint (its
+``best`` epoch, else its ``latest``) in eval mode, for
+``serve.endpoints.SignalEndpoint``, ``eval.report.SignalEvaluator`` and
+``prediction_map``.
+
+One difference, on purpose: the reference CLI builds its optimizer from
+the recipe's lr, decay and clip alone, so the ``two_stage`` and
+``seq_detector`` recipes train without the parameter groups and the
+cosine decay that they declare (ROADMAP.md, queue 3). Here
+:func:`recipe_optimizer` gives the optimizer both.
+
+The checkpoint's metadata adds ``signal_length`` to the reference's
+``model``, ``recipe`` and ``seq_len``: the models that read raw samples
+need it to be rebuilt. The training history plot waits for the port's
+``viz`` (ROADMAP.md, queue 1, item 17).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+from torch import nn
+
+from pautdx_torch.data.datasets import (
+    BatchIterator, defect_focused as focus_defects, load_json_dir,
+    train_val_split,
+)
+from pautdx_torch.device import Device, resolve_device
+from pautdx_torch.models.signal import build_signal_model
+from pautdx_torch.train.checkpoint import CheckpointManager, load_model_state
+from pautdx_torch.train.optim import (
+    OptimizerSpec, ReduceLROnPlateau, cosine_schedule, make_optimizer,
+)
+from pautdx_torch.train.recipes import RECIPES, Recipe
+from pautdx_torch.train.trainer import Trainer, TrainState
+
+
+def recipe_optimizer(recipe: Recipe, total_steps: int) -> OptimizerSpec:
+    """AdamW + clip at the recipe's lr, decay and clip, with its parameter
+    groups and, for ``scheduler == "cosine"``, ``cosine_schedule(lr,
+    total_steps)``."""
+    schedule = (cosine_schedule(recipe.learning_rate, total_steps)
+                if recipe.scheduler == "cosine" else None)
+    return make_optimizer(recipe.learning_rate, recipe.weight_decay,
+                          recipe.clip_norm, schedule=schedule,
+                          group_lr_mults=recipe.group_lr_mults,
+                          group_patterns=recipe.group_patterns)
+
+
+def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
+                 recipe: str = "detection", epochs: Optional[int] = None,
+                 batch_size: Optional[int] = None,
+                 seq_len: Optional[int] = None,
+                 defect_focused: bool = False, signal_length: int = 320,
+                 seed: int = 0, dp: bool = False, device: Device = None,
+                 log: Callable[[str], None] = print
+                 ) -> Tuple[Trainer, TrainState]:
+    """Train ``MODEL_ZOO[model]`` with ``RECIPES[recipe]`` on the ``*.json``
+    volumes of ``data_dir``, checkpoints under ``out``, on ``device``
+    (default ``"cuda"``). ``epochs``, ``batch_size`` and ``seq_len``
+    default to the recipe's; ``seed`` draws the initial weights and the
+    dropout masks. Returns the trainer (its ``history``) and the trained
+    state."""
+    if dp:
+        raise NotImplementedError(
+            "train_signal(dp=True): data-parallel training is not ported "
+            "yet (ROADMAP.md, queue 1, item 14)")
+    dev = resolve_device(device)
+    rec = RECIPES[recipe]
+    seq_len = seq_len or rec.seq_len
+    ds = load_json_dir(data_dir, seq_len=seq_len)
+    if defect_focused:
+        ds = focus_defects(ds)
+    if len(ds) and ds.signals.shape[-1] != signal_length:
+        raise ValueError(f"train_signal: the volumes in {data_dir} have "
+                         f"{ds.signals.shape[-1]} samples a signal, "
+                         f"signal_length is {signal_length}")
+    train_ds, val_ds = train_val_split(ds)
+    bs = batch_size or rec.batch_size
+    n_batches = len(BatchIterator(train_ds, bs))
+    if n_batches == 0:
+        raise ValueError(f"train_signal: {len(train_ds)} training sequences "
+                         f"of {seq_len} signals make no batch of {bs}")
+    n_epochs = epochs or rec.epochs
+    net = build_signal_model(model, signal_length=signal_length, seed=seed,
+                             device=dev)
+    trainer = Trainer(net, rec.make_objective(),
+                      recipe_optimizer(rec, n_epochs * n_batches),
+                      checkpoint_dir=out, seed=seed)
+    state = trainer.init(next(iter(BatchIterator(train_ds, bs))))
+    state = trainer.fit(
+        state,
+        lambda: BatchIterator(train_ds, bs, seed=1),
+        lambda: BatchIterator(val_ds, bs, shuffle=False,
+                              drop_remainder=False),
+        epochs=n_epochs,
+        plateau=(ReduceLROnPlateau(patience=rec.plateau_patience)
+                 if rec.scheduler == "plateau" else None),
+        early_stop_patience=rec.early_stop_patience,
+        metadata={"model": model, "recipe": recipe, "seq_len": seq_len,
+                  "signal_length": signal_length},
+        log=log)
+    return trainer, state
+
+
+def restore_signal_model(ckpt_dir: str, device: Device = None
+                         ) -> Tuple[nn.Module, Dict]:
+    """(model, metadata) of a ``train_signal`` checkpoint: the ``best``
+    epoch where one was marked, else the ``latest``, rebuilt from the
+    metadata's ``model`` and ``signal_length`` in eval mode on ``device``
+    (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    ckpt = CheckpointManager(ckpt_dir)
+    state, meta = ckpt.restore("best" if "best" in ckpt._markers()
+                               else "latest")
+    model = build_signal_model(meta["model"],
+                               signal_length=meta.get("signal_length", 320),
+                               device=dev)
+    load_model_state(model, state)
+    return model.eval(), meta

@@ -4,9 +4,12 @@ Counterpart of ``pautdx/train/trainer.py`` (``Trainer`` with ``init``,
 ``train_epoch``, ``evaluate`` and ``fit``; the same history rows, early
 stopping, plateau logic and per-epoch checkpoints). The objective is
 ``objective(out, batch) -> (loss, aux)``; the model is an ``nn.Module``
-whose ``forward(x, train=...)`` sets its own mode, as ``DFine`` does.
-Batches are dicts of numpy arrays (or tensors) with at least
-``input_key`` (``"images"``, which the port's detectors take).
+whose ``forward(x, train=...)`` sets its own mode, as ``DFine`` does, or
+whose ``forward(x)`` takes the input alone, as the signal models' does,
+and then the trainer sets the mode (``train()`` for a step, ``eval()``
+for an eval step). Batches are dicts of numpy arrays (or tensors) with at
+least ``input_key``: ``"signals"`` by default, as in the reference; the
+detectors' callers pass ``"images"``.
 
 PyTorch runs eagerly, so the parameters, BN statistics and optimizer
 moments live in the model and the optimizer, and :class:`TrainState` is a
@@ -33,9 +36,14 @@ Not ported: ``mesh=`` (data parallelism, ROADMAP queue 1, item 14). The
 input pipeline keeps ``PREFETCH`` batches in flight, copied from pinned
 host memory with ``non_blocking=True``; host-side batch assembly runs on
 a thread through ``data.prefetch.ThreadedHostLoader`` where the caller
-wraps its batches in one. Dropout draws from torch's global generator, so
-the reference's ``seed`` argument is not kept (the nano preset has no
-dropout).
+wraps its batches in one.
+
+Dropout: the reference draws a step's masks from ``fold_in(PRNGKey(seed),
+step)`` (``trainer.py:110-111``). Here the trainer owns a
+``torch.Generator`` on the model's device, hands it to every
+``nn.blocks.Dropout`` of the model, and seeds it before each step from
+(``seed``, step), so a step's masks depend on the seed and the step alone,
+whatever ran before in the process. The streams are torch's, not JAX's.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import inspect
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pautdx_torch.nn.blocks import set_dropout_generator
 from pautdx_torch.train.checkpoint import CheckpointManager, load_model_state
 from pautdx_torch.train.optim import (ClippedAdamW, OptimizerSpec,
                                       ReduceLROnPlateau, ema_update,
@@ -57,6 +67,13 @@ from pautdx_torch.train.optim import (ClippedAdamW, OptimizerSpec,
 from pautdx_torch.utils.debug import guarded
 
 PREFETCH = 2      # batches whose host-to-device copies run ahead of the step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for ``step`` of a run seeded ``seed``
+    (the counterpart of ``fold_in(PRNGKey(seed), step)``)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
 
 
 def _cpu(tree):
@@ -123,8 +140,8 @@ class Trainer:
     def __init__(self, model: nn.Module, objective: Callable,
                  optimizer: OptimizerSpec,
                  *, mesh=None, checkpoint_dir: Optional[str] = None,
-                 ema_decay: Optional[float] = None,
-                 input_key: str = "images",
+                 ema_decay: Optional[float] = None, seed: int = 0,
+                 input_key: str = "signals",
                  forward: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError(
@@ -135,8 +152,14 @@ class Trainer:
         self.optimizer = optimizer
         self.ema_decay = ema_decay
         self.input_key = input_key
+        self.seed = seed
+        # signal models take the input alone; DFine and YOLO take `train`
+        self._sets_own_mode = "train" in inspect.signature(
+            model.forward).parameters
         self.forward = forward or (
-            lambda m, batch: m(batch[input_key], train=True))
+            lambda m, batch: self._call(m, batch[input_key], True))
+        self.generator = torch.Generator(device=self.device)
+        set_dropout_generator(model, self.generator)
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir \
             else None
         self.history: Dict[str, list] = {}
@@ -145,6 +168,11 @@ class Trainer:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def _call(self, model: nn.Module, x: torch.Tensor, train: bool):
+        if self._sets_own_mode:
+            return model(x, train=train)
+        return model.train(train)(x)
 
     # -- init -------------------------------------------------------------
     def init(self, example_batch: Dict[str, Any]) -> TrainState:
@@ -175,6 +203,9 @@ class Trainer:
             if self._bn_snapshot is None:
                 self._bn_snapshot = [torch.empty_like(b) for b in bufs]
             torch._foreach_copy_(self._bn_snapshot, bufs)
+        self.generator.manual_seed(step_seed(self.seed, state.step))
+        if not self._sets_own_mode:
+            model.train()
         out = self.forward(model, batch)
         loss, aux = self.objective(out, batch)
         opt.zero_grad()
@@ -204,7 +235,7 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
-        out = state.model(batch[self.input_key], train=False)
+        out = self._call(state.model, batch[self.input_key], False)
         loss, aux = self.objective(out, batch)
         aux = dict(aux)
         aux["loss"] = loss
