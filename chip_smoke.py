@@ -8,10 +8,13 @@ through the chunked runner and the frames bridge), the YOLOv9c-seg,
 YOLO11n and YOLOv5su 640px predict paths, YOLO training and temporal
 D-FINE training through their entry points, and the signal domain: the
 21-model zoo and HybridBinary served through ``SignalEndpoint``, then
-trained through ``train.signal.train_signal``.
+trained through ``train.signal.train_signal``, and int8 activations in
+serving (D-FINE-nano and YOLOv8n-seg through the s8 x s8 -> s32
+convolution kernel), the HF D-FINE bridge and the C++ volume reader.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --signal-train    # phases 29-31 alone
+    python3 chip_smoke.py --int8            # phases 32-35 alone
 
 Phases, one line each, in order; any failure exits non-zero:
 
@@ -250,7 +253,37 @@ Phases, one line each, in order; any failure exits non-zero:
     ``gate_mask`` against the numpy mask, and
     ``export_signal_model(HybridBinary)`` saved as ``.pt2``, loaded and
     run on the card within 1e-5 of eager at batches 2 and 5; no kernel
-    launches.
+    launches;
+32. the int8 convolution kernel against its plain version at every
+    distinct site shape of the two int8 paths: the 69 sites of a b128
+    D-FINE-nano serving forward (``build_serving_model(int8_calib=...)``,
+    calibrated on a seeded 2 x 128 slab; 25 shapes, bf16) and the 66 of a
+    b32 YOLOv8n-seg predict (``build_yolo_predictor(int8_calib="first")``;
+    40 shapes, f32): the int32 accumulators and the dequantized output bit
+    for bit (the plain version convolves the integer values in float64,
+    exact); each shape's device ms (L2 flushed), the plain version's,
+    cuDNN's bf16 convolution at the same shape (a yardstick, not the same
+    function) and the bound (input read once, output written once, int8
+    weights, at the HBM rate; int8 operations at 1,979 TOP/s);
+33. int8 D-FINE-nano serving: the (8, 128, 80, 80, 192) slab of phase 6
+    through the int8 model: launches (552 int8 convolutions, 8
+    attentions, 24 one-hot gathers), finite outputs, detections through
+    the kernel against the plain int8 arm's (the int8 convolutions through
+    their plain version, the other kernels as served) by assignment on
+    one 128-frame step, frames/s in turns with the bf16 serving model of
+    phase 6 (and phase 6's median beside), the plain int8 arm over one
+    step;
+34. int8 YOLOv8n-seg predict at b32 f32: the first b4 predict calibrates;
+    kernels against plain versions on a b4 predict at phase 9's gate
+    (identical detections, masks within 1e-5); the (4, 32, 640, 640, 3)
+    slab's launches (264 int8 convolutions, 4 NMS sweeps, 4 mask
+    decodes), finite outputs, frames/s in turns with the f32 predictor;
+35. host-side modules: the HF-architecture D-FINE of
+    ``serve.dfine_predict`` exported to an HF state dict
+    (``compat.dfine_import``) and converted back into a fresh model, every
+    entry bit-equal, detections matched by assignment; phase 19's volumes
+    written again and parsed by the C++ reader (``native``, asserted
+    built and taken), bit-equal to the numpy path.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -279,11 +312,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data sheet: HBM rate, dense bf16 and TF32 tensor-core rates,
-# and the f32 rate of the CUDA cores
+# the f32 rate of the CUDA cores and the dense int8 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12     # dense int8 tensor cores
 # exponentials per clock per SM from the special-function units (the CUDA
 # programming guide's throughput table, compute capability 9.0)
 SFU_EXP_PER_CLK_PER_SM = 16
@@ -350,6 +384,10 @@ SIGNAL_CHECK_SHAPE = (2, 50, 320)   # phase 29's card-against-CPU steps
 SIGNAL_TRAIN_SHAPE = (8, 50, 320)   # the detection recipe's batch
 SIGNAL_LOSS_STEPS = 20
 SIGNAL_TRAIN_TURN = 10
+# phases 32-34: the int8 sites of the D-FINE-nano serving configuration
+# (HGNet stages 2-3 and the hybrid encoder) and of YOLOv8n-seg
+INT8_DFINE_SITES = 69
+INT8_YOLO_SITES = 66
 
 
 def fail(msg: str) -> None:
@@ -2990,6 +3028,352 @@ def write_signal_volumes(data_dir: str) -> None:
                                     spec, defects)
 
 
+@contextmanager
+def all_int8_inputs(captured: dict):
+    """Keep the arguments of the first call of each distinct int8 site
+    shape (input shape, dtype and strides, weight, stride, padding,
+    groups) and the number of calls of each, for a while."""
+    from pautdx_torch.ops import qconv
+
+    saved = qconv.int8_conv
+
+    def wrapper(x, weight, stride, padding, groups, in_scale, prepared):
+        key = (tuple(x.shape), str(x.dtype).split(".")[1], x.stride(),
+               tuple(weight.shape), stride, padding, groups)
+        entry = captured.setdefault(key, [
+            (x, weight, stride, padding, groups, in_scale, prepared), 0])
+        entry[1] += 1
+        return saved(x, weight, stride, padding, groups, in_scale, prepared)
+
+    qconv.int8_conv = wrapper
+    try:
+        yield
+    finally:
+        qconv.int8_conv = saved
+
+
+def int8_site_record(torch, key, args, calls: int) -> dict:
+    """Phase 32's check and times of one int8 site shape: the kernel's
+    int32 accumulators and dequantized output against the plain version's
+    bit for bit, then device times (L2 flushed) of the kernel, the plain
+    version and cuDNN's bf16 convolution at the same shape (a yardstick:
+    not the same function), and the bound: the input read once, the output
+    written once and the int8 weights at the HBM rate, against the int8
+    operations at the dense int8 peak."""
+    from pautdx_torch.ops import qconv
+
+    F = torch.nn.functional
+    x, w, st, pad, g, _, prep = args
+    w = w.detach()
+    acc = qconv.int8_accumulators(x, prep, st, pad)
+    want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
+    check(torch.equal(acc, want_acc), f"int8 conv {key}: the kernel's int32 "
+          f"accumulators differ from the plain version's in "
+          f"{int((acc != want_acc).sum())} places")
+    out = qconv.int8_conv(x, w, st, pad, g, None, prep)
+    want = qconv.int8_conv_reference(x, w, st, pad, g, None, prep)
+    check(out.dtype == want.dtype and torch.equal(out, want),
+          f"int8 conv {key}: the kernel's output differs from the plain "
+          f"version's by {max_abs_err(out, want):.3g}")
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    ms = device_ms(lambda: qconv.int8_conv(x, w, st, pad, g, None, prep),
+                   reps=5)
+    plain_ms = device_ms(lambda: qconv.int8_conv_reference(
+        x, w, st, pad, g, None, prep), reps=3)
+    library_ms = device_ms(lambda: F.conv2d(xb, wb, None, st, pad, 1, g),
+                           reps=5)
+    N, C, H, W = x.shape
+    O, I, kh, kw = prep.q.shape
+    nbytes = (x.numel() * x.element_size() + out.numel()
+              * out.element_size() + prep.q.numel())
+    ops = 2 * out.numel() * I * kh * kw
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
+    return dict(calls=calls, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                nbytes=nbytes, ops=ops, depthwise=g > 1,
+                shape=f"x {tuple(x.shape)} {key[1]}"
+                      f"{' channels-last' if x.stride(1) == 1 else ''}, "
+                      f"w {tuple(prep.q.shape)}, stride {st}, pad {pad}, "
+                      f"groups {g}")
+
+
+def int8_forward_record(name: str, rows: list, launches: int,
+                        what: str) -> dict:
+    """The kernel line's record of the int8 convolution over one forward
+    of a path: each site shape's times and bound times its calls, summed."""
+    tot = {k: sum(r[k] * r["calls"] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "nbytes",
+                     "ops")}
+    t_bytes = tot["nbytes"] / PEAK_BYTES_PER_S
+    t_ops = tot["ops"] / PEAK_INT8_OPS_PER_S
+    return dict(
+        name=name, route="cuda", source="pautdx_torch/csrc/int8_conv.cu",
+        replaces="pautdx/ops/qconv.py:58 (XLA's s8 x s8 -> s32 "
+                 "convolution; no Pallas kernel)",
+        launches=launches, max_abs_err=0.0, ms=tot["ms"],
+        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=tot["library_ms"],
+        library_note="cuDNN's bf16 convolution at the same shapes, a "
+                     "yardstick: no PyTorch call computes the int8 "
+                     "convolution",
+        shape=f"{what}: {sum(r['calls'] for r in rows)} sites of "
+              f"{len(rows)} shapes, {tot['nbytes']} bytes, {tot['ops']} "
+              f"int8 operations")
+
+
+def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
+                bf16_fps: list) -> list:
+    """Phases 32-34: the int8 convolution kernel against its plain version
+    at every site shape of the two int8 paths, then the int8 D-FINE-nano
+    serving run and the int8 YOLOv8n-seg predict run; returns the
+    kernel's records."""
+    from pautdx_torch.ops import masks, qconv, suppress
+    from pautdx_torch.serve.throughput import (
+        build_serving_model, make_streaming_forward, make_uint8_slab,
+        measure_fps,
+    )
+    from pautdx_torch.serve.yolo_predict import (
+        build_yolo_predictor, make_frame_slab, make_yolo_stream,
+    )
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    # the int8 serving model, calibrated on a seeded slab of two steps
+    calib = make_uint8_slab((2, BATCH, 80, 80, 192), seed=5, device=dev)
+    served = build_serving_model(device=dev, batch=BATCH, seed=0,
+                                 int8_calib=calib)
+    check(len(served.quant) == INT8_DFINE_SITES,
+          f"int8 serving: {len(served.quant)} calibrated sites, want "
+          f"{INT8_DFINE_SITES}")
+    slab = make_uint8_slab(served.slab_shape(N_STEPS), seed=2, device=dev)
+    dcap = {}
+    with torch.inference_mode(), all_int8_inputs(dcap):
+        served.model(slab[0])
+    # YOLOv8n-seg, calibrated on the first batch it predicts
+    ypred = build_yolo_predictor(device=dev, seed=0, int8_calib="first")
+    frames = make_frame_slab(1, 4, seed=3, device=dev)[0]
+    reset_counts(counters)
+    det_k = ypred(frames)
+    torch.cuda.synchronize()
+    per_predict = launch_counts(counters)
+    check(len(ypred.quant) == INT8_YOLO_SITES,
+          f"int8 YOLO: {len(ypred.quant)} calibrated sites, want "
+          f"{INT8_YOLO_SITES}")
+    yslab = make_frame_slab(YOLO_STEPS, YOLO_BATCH, seed=4, device=dev)
+    ycap = {}
+    with all_int8_inputs(ycap):
+        ypred(yslab[0])
+    setup_s = time.perf_counter() - t0
+
+    # 32. the kernel against its plain version at every site shape
+    t0 = time.perf_counter()
+    rows = {}
+    for path, cap in (("dfine", dcap), ("yolo", ycap)):
+        with torch.inference_mode():
+            rows[path] = [int8_site_record(torch, key, args, n)
+                          for key, (args, n) in cap.items()]
+        for r in rows[path]:
+            print(f"[32 int8 conv {path}] {r['shape']}, {r['calls']} "
+                  f"site(s) a forward: accumulators and output == plain; "
+                  f"device ms kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}"
+                  f", cuDNN bf16 {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    del dcap, ycap
+    print(f"[32 int8 conv] kernel == plain bit for bit (int32 "
+          f"accumulators and the dequantized output) at "
+          f"{len(rows['dfine'])} D-FINE-nano serving site shapes (b{BATCH} "
+          f"bf16, {sum(r['calls'] for r in rows['dfine'])} sites) and "
+          f"{len(rows['yolo'])} YOLOv8n-seg site shapes (b{YOLO_BATCH} f32,"
+          f" {sum(r['calls'] for r in rows['yolo'])} sites); "
+          f"{time.perf_counter() - t0:.1f} s (set-up "
+          f"{setup_s:.1f} s)", flush=True)
+
+    # 33. int8 D-FINE-nano serving
+    t0 = time.perf_counter()
+    stream = make_streaming_forward(served.model)
+    stream(slab[:1])
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    logits, boxes, finite = stream(slab)
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    want = dict(none, aifi_attention=N_STEPS, onehot_gather=3 * N_STEPS,
+                int8_conv=INT8_DFINE_SITES * N_STEPS)
+    check(counts == want, f"int8 serving run launches {counts}, want {want}")
+    check(bool(finite), "int8 serving outputs are not all finite")
+    check(tuple(logits.shape) == (BATCH, 150, 2)
+          and tuple(boxes.shape) == (BATCH, 150, 4),
+          f"int8 serving outputs {tuple(logits.shape)} "
+          f"{tuple(boxes.shape)}")
+    # the plain int8 arm: the int8 convolutions through their plain
+    # version, every other kernel as served (in bf16 the plain attention
+    # rounds P before P.V, which moves the top-k query selection of random
+    # weights, so the whole plain path would not isolate this kernel)
+    int8_plain = {"int8_conv": qconv}
+    with torch.inference_mode():
+        out_k = served.model(slab[0])
+        with plain_kernels(int8_plain):
+            out_p = served.model(slab[0])
+    why = same_detections(*(t.float().cpu().numpy() for t in (
+        out_k["logits"], out_k["pred_boxes"], out_p["logits"],
+        out_p["pred_boxes"])))
+    check(not why, f"int8 serving, kernels vs plain: {why}")
+    exact = all(torch.equal(out_k[k], out_p[k])
+                for k in ("logits", "pred_boxes"))
+    dense = build_serving_model(device=dev, batch=BATCH, seed=0)
+    dstream = make_streaming_forward(dense.model)
+    dstream(slab[:1])
+    fps = {"int8": [], "bf16": []}
+    for arm in ("int8", "bf16", "bf16", "int8") * 2:
+        fps[arm].append(measure_fps(stream if arm == "int8" else dstream,
+                                    slab))
+    with plain_kernels(int8_plain):
+        plain_fps = measure_fps(stream, slab[:1])
+    phase6 = (f"median {statistics.median(bf16_fps):.1f}" if bf16_fps
+              else "not run")
+    print(f"[33 int8 serving] bench config, int8 activations at "
+          f"{INT8_DFINE_SITES} sites, bf16 elsewhere, uint8 slab "
+          f"{tuple(slab.shape)}, {smi_line()}: median "
+          f"{statistics.median(fps['int8']):.1f} frames/s through the kernels "
+          f"{[round(f, 1) for f in fps['int8']]}, median "
+          f"{statistics.median(fps['bf16']):.1f} for bf16 serving in turns "
+          f"with it {[round(f, 1) for f in fps['bf16']]} (phase 6: "
+          f"{phase6}), {plain_fps:.1f} with the int8 convolutions through "
+          f"their plain version over one step; launches over one slab: "
+          f"{counts}; detections through the kernel match that plain int8 "
+          f"arm's by assignment on {BATCH} frames (logits and boxes "
+          f"{'bit-equal' if exact else 'not bit-equal'}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    records = [int8_forward_record(
+        "int8_conv", rows["dfine"], counts["int8_conv"],
+        f"one b{BATCH} forward of the D-FINE-nano serving slab")]
+    del served, dense, stream, dstream, slab, calib, out_k, out_p
+
+    # 34. int8 YOLOv8n-seg predict at b32
+    t0 = time.perf_counter()
+    want = dict(none, nms_suppress=1, assemble_masks=1,
+                int8_conv=INT8_YOLO_SITES)
+    check(per_predict == want, f"one int8 predict (the calibrating one) "
+          f"launched {per_predict}, want {want}")
+    reset_counts(counters)
+    det_k = ypred(frames)
+    with plain_kernels(wrappers):
+        det_p = ypred(frames)
+    check(launch_counts(counters) == want, f"int8 predict launched "
+          f"{launch_counts(counters)}, want {want}")
+    differ = [k for k in DETECTION_KEYS if not torch.equal(det_k[k],
+                                                           det_p[k])]
+    check(not differ, f"int8 yolo: detections through the kernels differ "
+          f"from the plain versions' in {differ}")
+    err = max_abs_err(det_k["masks"], det_p["masks"])
+    check(err <= MASK_TOL, f"int8 yolo: masks differ by {err:.3g}")
+    ystream = make_yolo_stream(ypred)
+    ystream(yslab[:1])
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    det, finite = ystream(yslab)
+    torch.cuda.synchronize()
+    ycounts = launch_counts(counters)
+    want = dict(none, nms_suppress=YOLO_STEPS, assemble_masks=YOLO_STEPS,
+                int8_conv=INT8_YOLO_SITES * YOLO_STEPS)
+    check(ycounts == want, f"int8 predict run launches {ycounts}, want "
+          f"{want}")
+    check(bool(finite), "int8 predict outputs are not all finite")
+    check(tuple(det["boxes"].shape) == (YOLO_BATCH, 100, 4)
+          and tuple(det["masks"].shape) == (YOLO_BATCH, 100, 160, 160),
+          f"int8 predict outputs {tuple(det['boxes'].shape)} "
+          f"{tuple(det['masks'].shape)}")
+    dense = build_yolo_predictor(device=dev, seed=0)
+    dstream = make_yolo_stream(dense)
+    dstream(yslab[:1])
+    yfps = {"int8": [], "f32": []}
+    for arm in ("int8", "f32", "f32", "int8") * 2:
+        yfps[arm].append(measure_fps(ystream if arm == "int8" else dstream,
+                                     yslab))
+    print(f"[34 int8 yolo] yolov8n-seg, int8 activations at "
+          f"{INT8_YOLO_SITES} sites (calibrated on the first batch), f32 "
+          f"elsewhere, uint8 slab {tuple(yslab.shape)}: median "
+          f"{statistics.median(yfps['int8']):.1f} frames/s "
+          f"{[round(f, 1) for f in yfps['int8']]}, median "
+          f"{statistics.median(yfps['f32']):.1f} for the f32 predictor in "
+          f"turns with it {[round(f, 1) for f in yfps['f32']]}; b4 predict "
+          f"through the kernels == plain (masks max |err| {err:.3g}); "
+          f"launches per predict {per_predict}, over one slab {ycounts}; "
+          f"outputs finite; {det['valid'].sum(1).tolist()[:8]}... valid per "
+          f"frame; {time.perf_counter() - t0:.1f} s", flush=True)
+    records.append(int8_forward_record(
+        "int8_conv_yolov8n_seg", rows["yolo"], ycounts["int8_conv"],
+        f"one b{YOLO_BATCH} f32 forward of YOLOv8n-seg"))
+    for r in records:
+        print(f"[34 int8 conv record {r['name']}] {r['shape']}: device ms a "
+              f"forward kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"cuDNN bf16 {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); {r['launches']} launches over the slab",
+              flush=True)
+    return records
+
+
+def host_phase(torch, dev) -> None:
+    """Phase 35: the HF D-FINE bridge's round trip at the HF-architecture
+    predict model, and phase 19's volumes through the C++ reader against
+    the numpy path."""
+    from pautdx_torch import native
+    from pautdx_torch.compat import dfine_import
+    from pautdx_torch.data.volume import parse_json_volume, parse_txt_tree
+    from pautdx_torch.models.vision.dfine import DFine
+    from pautdx_torch.serve.dfine_predict import build_dfine_predictor
+
+    t0 = time.perf_counter()
+    model = build_dfine_predictor(device=dev, seed=0).model
+    exported = dfine_import.export_state_dict(model)
+    back = DFine(model.cfg, device=dev, seed=1)
+    unused = dfine_import.load_hf_state_dict(back, exported)
+    check(all(k.startswith("model.decoder.") for k in unused),
+          f"HF bridge: unexpected unused keys {unused[:6]}")
+    differ = [k for k, v in model.state_dict().items()
+              if not torch.equal(v, back.state_dict()[k])]
+    check(not differ, f"HF bridge: the round trip changed {differ[:6]}")
+    frames = torch.rand((2, 640, 640, 3), generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    with torch.inference_mode():
+        a, b = model(frames), back(frames)
+    why = same_detections(*(t.float().cpu().numpy() for t in (
+        a["logits"], a["pred_boxes"], b["logits"], b["pred_boxes"])))
+    check(not why, f"HF bridge: the round-tripped model's detections: {why}")
+    same = "bit-equal" if torch.equal(a["logits"], b["logits"]) else \
+        "matched by assignment"
+    bridge = (f"{len(exported)} HF entries exported, converted back "
+              f"bit-equal ({len(unused)} tied aliases unused), outputs "
+              f"{same}")
+    del model, back, frames, a, b
+
+    check(native.native_available(), f"the C++ reader does not build: "
+          f"{native.native_error()}")
+    root = os.path.join(HERE, "build", "chip_smoke_native")
+    shutil.rmtree(root, ignore_errors=True)
+    before = native.NATIVE_PARSES
+    vols = write_volumes(root)
+    check(native.NATIVE_PARSES == before + len(vols),
+          f"the C++ reader answered {native.NATIVE_PARSES - before} of "
+          f"{len(vols)} parses")
+    for i, vol in enumerate(vols):
+        ref = (parse_json_volume(os.path.join(root, f"vol{i}.json"),
+                                 use_native=False) if i < 2 else
+               parse_txt_tree(root, f"vol{i}", use_native=False))
+        check(vol.beam_keys == ref.beam_keys
+              and all(np.array_equal(vol.signals[k], ref.signals[k])
+                      and vol.scan_infos[k] == ref.scan_infos[k]
+                      for k in ref.beam_keys),
+              f"volume {i}: the C++ reader differs from the numpy path")
+    print(f"[35 host] HF D-FINE bridge at DFineConfig(num_labels=2, "
+          f"encoder_fused_attn=True): {bridge}; phase 19's volumes (2 JSON, "
+          f"2 txt trees) through the C++ reader ({native.lib_path().name}, "
+          f"{len(vols)} native parses) == the numpy path bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -3010,7 +3394,8 @@ def main() -> None:
         f"pautdx_torch imported from {pautdx_torch.__file__}, not from "
         f"this checkout")
     from pautdx_torch.models.vision.dfine import DFine
-    from pautdx_torch.ops import _build, attention, gather, masks, suppress
+    from pautdx_torch.ops import (_build, attention, gather, masks, qconv,
+                                  suppress)
     from pautdx_torch.ops.nms import box_iou_matrix
     from pautdx_torch.serve.throughput import (
         build_serving_model, fold_uint8_stem, make_streaming_forward,
@@ -3030,7 +3415,8 @@ def main() -> None:
                 "weighted_gather_backward": (gather,
                                              "WEIGHTED_BACKWARD_LAUNCHES"),
                 "onehot_gather_backward": (gather,
-                                           "ONEHOT_BACKWARD_LAUNCHES")}
+                                           "ONEHOT_BACKWARD_LAUNCHES"),
+                "int8_conv": (qconv, "LAUNCHES")}
     wrappers = {name: mod for name, (mod, _) in counters.items()}
     none = dict.fromkeys(counters, 0)
 
@@ -3044,6 +3430,17 @@ def main() -> None:
     if sys.argv[1:] == ["--signal-train"]:     # phases 29-31 alone
         print(f"[1 device] {smi_line()}", flush=True)
         signal_train_phases(torch, dev, counters, none)
+        return
+    if sys.argv[1:] == ["--int8"]:             # phases 32-35 alone
+        print(f"[1 device] {smi_line()}", flush=True)
+        print(f"[2 build] {_build.build():.2f} s of parallel nvcc",
+              flush=True)
+        for r in int8_phases(torch, dev, counters, wrappers, none, None):
+            print(json.dumps({k: r[k] for k in (
+                "name", "launches", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}), flush=True)
+        host_phase(torch, dev)
+        print(f"[wall] {time.perf_counter() - t_start:.1f} s", flush=True)
         return
 
     # 1. device
@@ -3388,6 +3785,9 @@ def main() -> None:
     kernels += temporal_train_phase(torch, dev, counters, wrappers, none)
     signal_phases(torch, dev, counters, none)
     signal_train_phases(torch, dev, counters, none)
+    kernels += int8_phases(torch, dev, counters, wrappers, none,
+                           fps["kernels"])
+    host_phase(torch, dev)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

@@ -43,6 +43,11 @@ entry of the module's ``state_dict()`` by its leaf name:
 Loading is strict: every parameter and buffer of the module is filled and
 every JAX leaf is used, or a ``KeyError`` names what is missing and what
 is left over.
+
+A ``"quant"`` collection (the reference's activation-int8 scales,
+``<site>.in_scale`` leaves) sets the scale of each int8 site
+(``ops.qconv.Int8Site``) at the same path, outside ``state_dict()``; a
+scale whose site the module lacks raises ``KeyError`` too.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 from torch import nn
 
 from pautdx_torch.device import resolve_device
+from pautdx_torch.ops.qconv import set_int8_scales
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -208,4 +214,20 @@ def load_jax_variables(module: nn.Module, variables: Mapping,
     module.load_state_dict(
         port_state_dict(variables, module.state_dict().keys(), transposed),
         strict=True)
-    return module.to(dev)
+    module.to(dev)
+    if "quant" in variables:
+        set_int8_scales(module, jax_quant_scales(variables["quant"]))
+    return module
+
+
+def jax_quant_scales(quant: Mapping) -> Dict[str, float]:
+    """The reference's ``"quant"`` collection -> {site path: scale}: each
+    ``<path>.in_scale`` leaf, its value as the f32 it is."""
+    out = {}
+    for path, v in flatten(quant).items():
+        site, _, leaf = path.rpartition(".")
+        if leaf != "in_scale":
+            raise KeyError(f"load_jax_variables: quant leaf {path} is not "
+                           f"an in_scale")
+        out[site] = float(np.float32(np.asarray(v)))
+    return out

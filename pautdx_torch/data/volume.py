@@ -1,9 +1,9 @@
 """Raw PAUT volume parsers: txt trees and JSON volumes -> numpy arrays.
 
-The port's own copy of ``pautdx/data/volume.py``. The reference routes a
-path through its C++ reader (``pautdx.native``) when that builds; the port
-carries the numpy path, which gives the same arrays (the C++ reader is a
-later item of ROADMAP.md).
+The port's own copy of ``pautdx/data/volume.py``. With ``use_native=True``
+(the default, as the reference's) a path goes through the C++ reader
+(``pautdx_torch.native``), which gives the numpy path's arrays; where no
+C++ compiler exists the numpy path runs, and a failed build raises.
 
 Both parsers produce a :class:`ParsedVolume`:
 - ``signals``: dict ``beam_key -> (n_scans, n_samples) float32`` (scan-sorted)
@@ -20,6 +20,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from pautdx_torch import native
 from pautdx_torch.data import grammar
 from pautdx_torch.data.grammar import ScanInfo
 
@@ -42,15 +43,21 @@ class ParsedVolume:
         return np.stack([self.signals[k] for k in self.beam_keys])
 
 
-def parse_json_volume(path_or_dict) -> ParsedVolume:
+def parse_json_volume(path_or_dict, use_native: bool = True
+                      ) -> ParsedVolume:
     """Parse the reference JSON-volume schema ``{beam: {scan_key: signal}}``
     from a path or an already-loaded dict.
 
     Scan values may be raw lists or ``{"signal": [...]}`` dicts. Scan keys
     are sorted by integer index; ragged beams are right-padded with zeros
-    to the beam's longest scan.
+    to the beam's longest scan. A path goes through the C++ one-pass
+    scanner (``native.parse_json_volume_fast``) when ``use_native`` and a
+    compiler exists; a dict, and ``use_native=False``, through json and
+    numpy.
     """
     if isinstance(path_or_dict, (str, os.PathLike)):
+        if use_native and _native_ok():
+            return native.parse_json_volume_fast(os.fspath(path_or_dict))
         with open(path_or_dict) as f:
             data = json.load(f)
     else:
@@ -89,6 +96,15 @@ def parse_json_volume(path_or_dict) -> ParsedVolume:
     return ParsedVolume(beam_keys, [float(a) for a in angles], signals, infos)
 
 
+def _native_ok() -> bool:
+    """The C++ reader builds here; without a compiler, False. A compiler
+    whose build fails raises with its output: no silent numpy path."""
+    if native.compiler() is None:
+        return False
+    native.load()
+    return True
+
+
 def _scan_index(filename: str):
     """Integer scan-index prefix of ``<int>_<label>.txt``, else None."""
     try:
@@ -97,15 +113,20 @@ def _scan_index(filename: str):
         return None
 
 
-def parse_txt_tree(root: str, file_folder: str) -> ParsedVolume:
+def parse_txt_tree(root: str, file_folder: str,
+                   use_native: bool = True) -> ParsedVolume:
     """Parse ``root/<file_folder>/<beam>_<angle>/<scan>_<label>[_s-e].txt``:
     beams sorted by float angle, one float column per txt file, labels from
     the filename grammar. Only ``.txt`` files with an integer scan-index
     prefix are read; a beam folder whose every ``.txt`` misses that grammar
-    raises."""
+    raises. With ``use_native`` and a compiler, the files are read and
+    parsed by the C++ reader's thread pool
+    (``native.parse_ascan_tree_fast``), else one ``np.loadtxt`` each."""
     base = os.path.join(root, file_folder)
     beams = grammar.sort_beams(os.listdir(base))
     angles = [grammar.beam_angle(b) for b in beams]
+    tree = (native.parse_ascan_tree_fast(base)
+            if use_native and _native_ok() else {})
 
     signals: Dict[str, np.ndarray] = {}
     infos: Dict[str, List[ScanInfo]] = {}
@@ -121,7 +142,8 @@ def parse_txt_tree(root: str, file_folder: str) -> ParsedVolume:
                 f"no scan files in {beam_dir} match the "
                 f"'<int>_<label>.txt' grammar (example present: "
                 f"{next(f for f in listing if f.endswith('.txt'))!r})")
-        rows = [np.loadtxt(os.path.join(beam_dir, fn), dtype=np.float32)
+        rows = [tree[f"{beam}/{fn}"] if f"{beam}/{fn}" in tree
+                else np.loadtxt(os.path.join(beam_dir, fn), dtype=np.float32)
                 for fn in files]
         signals[beam] = np.stack(rows) if rows else np.zeros((0, 0),
                                                              np.float32)

@@ -1,5 +1,5 @@
 """Accuracy run of D-FINE-nano on synthetic PAUT volumes: train on the
-card, then mAP@0.5 on held-out volumes in five inference arms.
+card, then mAP@0.5 on held-out volumes in six inference arms.
 
 The nano arm of ``tools/bench_accuracy.py``, step for step:
 
@@ -27,13 +27,30 @@ and each gradient leaf's relative error is printed beside its 1e-3 limit.
 
     python -m pautdx_torch.eval.accuracy [--steps 3000] [--batch 16]
         [--quick] [--volumes N] [--device cuda|cpu] [--out FILE]
-        [--temporal]
+        [--temporal | --parity-small]
 
 ``--quick`` runs 128px frames and at most 60 steps; ``--volumes N`` takes
 the first N seeds of each set. The last line of the output is one JSON
 object with every arm's mAP@0.5, the step count, the frame counts, the
 wall time, the median ms/step and the card's name and power limit as
 ``nvidia-smi`` reports them.
+
+A sixth arm, ``serving_int8`` (the reference's ``jax_map50_serving_int8_acts``),
+is arm (c) with int8 activations at its 69 conv sites, calibrated on the
+first 64 training frames in batches of ``EVAL_BATCH`` as uint8 wire slabs,
+never on the evaluation set; it shares (c)'s weights, so its difference
+from (c) (``serving_int8_minus_serving``) is free of the spread between
+training runs.
+
+``--parity-small`` runs the reference's ``parity_small`` arm instead
+(``bench_accuracy.run_parity``, :func:`run_parity_small`): the small
+HF-architecture config (``PARITY_SMALL``) trained as above, its mAP@0.5
+(f32, bilinear) and its weights exported to an HF state dict
+(``compat.dfine_import``); where ``transformers`` imports, the export loads
+strictly into ``DFineForObjectDetection`` and is scored on the CPU on up
+to 240 frames beside the port's own outputs there; where it does not,
+``"torch"`` is null with the reason, and the export is converted back
+into the port and held bit-equal.
 
 ``--temporal`` runs the reference's temporal arm instead
 (``bench_accuracy.run_temporal``, :func:`run_temporal`): 20 train and 8
@@ -44,8 +61,7 @@ sequences at 320px (``--quick``: 2 and 1 volumes, 8-frame sequences at
 min(``--steps``, 2000) steps as above and checkpointed with its EMA, then
 v1, v2 and v3 trained over it for 400, 1000 and 400 steps
 (``train.temporal.train_temporal``); each variant's per-frame mAP@0.5
-beside the trunk's. The reference's ``parity_small`` and int8 arms are
-not part of either run.
+beside the trunk's.
 """
 
 from __future__ import annotations
@@ -69,7 +85,10 @@ from pautdx_torch.data.vision import detection_frames_from_volume
 from pautdx_torch.data.volume import parse_json_volume
 from pautdx_torch.device import resolve_device
 from pautdx_torch.eval.map import evaluate_map
-from pautdx_torch.models.vision.dfine import DFine, dfine_nano, post_process
+from pautdx_torch.compat import dfine_import
+from pautdx_torch.models.vision.dfine import (DFine, DFineConfig, dfine_nano,
+                                              post_process)
+from pautdx_torch.models.vision.hgnet import HGNetConfig
 from pautdx_torch.ops import gather
 from pautdx_torch.serve.throughput import (build_serving_model,
                                            cast_params_bf16,
@@ -96,6 +115,23 @@ THRESHOLD = 0.05        # post_process's score threshold and its top-k
 MAX_DET = 16
 STEP_BATCH = 4          # frames of the discrete step from trained weights
 GRAD_LIMIT = 1e-3       # per-leaf relative gradient error, kernels vs plain
+INT8_CALIB_FRAMES = 64  # training frames the int8 arm calibrates on
+PARITY_MAX_FRAMES = 240  # frames the HF model scores on the CPU
+# the reference's parity_small (tools/bench_accuracy.py:111-128): the HF
+# architecture at small widths
+PARITY_SMALL = DFineConfig(
+    num_labels=NUM_LABELS, d_model=64, encoder_hidden_dim=64,
+    decoder_layers=2, decoder_attention_heads=4, encoder_attention_heads=4,
+    decoder_ffn_dim=128, encoder_ffn_dim=128, num_queries=30,
+    max_num_bins=16, hidden_expansion=0.5, lqe_hidden_dim=64,
+    backbone=HGNetConfig(
+        stem_channels=(3, 8, 8), stage_in_channels=(8, 16, 32, 64),
+        stage_mid_channels=(8, 8, 16, 32),
+        stage_out_channels=(16, 32, 64, 128),
+        stage_num_blocks=(1, 1, 1, 1), stage_num_layers=(1, 1, 2, 2),
+        stage_downsample=(False, True, True, True),
+        stage_light_block=(False, False, True, True),
+        stage_kernel_size=(3, 3, 5, 5)))
 
 Data = Dict[str, torch.Tensor]
 
@@ -150,13 +186,14 @@ def make_dataset(seeds: Sequence[int], rng_seed: int, size: int = IMG,
     return {k: torch.cat(v) for k, v in parts.items()}
 
 
-def train(data: Data, steps: int, batch: int, size: int = IMG, log=print
+def train(data: Data, steps: int, batch: int, size: int = IMG, log=print,
+          cfg: Optional[DFineConfig] = None
           ) -> Tuple[Trainer, TrainState, List[float]]:
-    """``steps`` steps of ``dfine_nano(num_labels=2)`` on the device-held
-    ``data``; returns the trainer, its state and each step's ms (host
-    clock, from one step's start to the next's)."""
+    """``steps`` steps of ``cfg`` (default ``dfine_nano(num_labels=2)``) on
+    the device-held ``data``; returns the trainer, its state and each
+    step's ms (host clock, from one step's start to the next's)."""
     dev = data["images"].device
-    cfg = dfine_nano(num_labels=NUM_LABELS)
+    cfg = dfine_nano(num_labels=NUM_LABELS) if cfg is None else cfg
     schedule = cosine_schedule(LR, steps, warmup_steps=min(100, steps // 10),
                                final_scale=1 / 50)
     trainer = Trainer(DFine(cfg, device=dev),
@@ -219,11 +256,23 @@ MODEL_ARMS = {"f32_bilinear": (torch.float32, "default"),
               "bf16_discrete": (torch.bfloat16, "discrete")}
 
 
-def evaluate_arms(state: TrainState, data: Data, size: int = IMG
+def wire_frames(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """[0, 1] float frames -> the uint8 wire format on their device:
+    rounded to uint8 as the reference's harness does, then prepatchified
+    on the host."""
+    u8 = np.clip(images.cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return torch.from_numpy(prepatchify_uint8(u8, patch)).to(images.device)
+
+
+def evaluate_arms(state: TrainState, data: Data, size: int = IMG,
+                  calib_images: Optional[torch.Tensor] = None
                   ) -> Dict[str, float]:
     """mAP@0.5 of the state's EMA parameters with the live BN statistics:
     each of ``MODEL_ARMS`` (``f32_bilinear`` is arm a, ``bf16_discrete``
-    arm b; the bf16 arms feed bf16 frames) and ``serving`` (arm c)."""
+    arm b; the bf16 arms feed bf16 frames), ``serving`` (arm c) and, given
+    training frames ``calib_images``, ``serving_int8``: arm (c)'s model
+    with int8 activations calibrated on their first ``INT8_CALIB_FRAMES``
+    in batches of ``EVAL_BATCH`` (``bench_accuracy.py:257-264``)."""
     images = data["images"]
     dev = images.device
     with ema_weights(state) as model:
@@ -239,11 +288,19 @@ def evaluate_arms(state: TrainState, data: Data, size: int = IMG
         out[name] = _map50(lambda a, b: arm(images[a:b].to(dtype)), data,
                            size)
     serving = build_serving_model(dev, batch=EVAL_BATCH, state_dict=weights)
-    u8 = np.clip(images.cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    wire = torch.from_numpy(prepatchify_uint8(
-        u8, serving.cfg.backbone.stem_patch)).to(dev)
+    patch = serving.cfg.backbone.stem_patch
+    wire = wire_frames(images, patch)
     out["serving"] = _map50(lambda a, b: serving.model(wire[a:b]), data,
                             size)
+    if calib_images is not None:
+        nc = min(int(calib_images.shape[0]), INT8_CALIB_FRAMES)
+        cal = wire_frames(calib_images[:nc], patch)
+        int8 = build_serving_model(
+            dev, batch=EVAL_BATCH, state_dict=weights,
+            int8_calib=[cal[a:a + EVAL_BATCH]
+                        for a in range(0, nc - nc % EVAL_BATCH, EVAL_BATCH)])
+        out["serving_int8"] = _map50(lambda a, b: int8.model(wire[a:b]),
+                                     data, size)
     return out
 
 
@@ -417,6 +474,139 @@ def run_temporal(args, dev: torch.device) -> Dict:
     return out
 
 
+def hf_config(cfg: DFineConfig):
+    """``transformers``' ``DFineConfig`` of an HF-architecture port config,
+    as the reference's ``eval_torch_parity`` builds it
+    (``bench_accuracy.py:379-409``)."""
+    from transformers import DFineConfig as HFDFineConfig
+    from transformers import HGNetV2Config
+
+    bb = cfg.backbone
+    backbone = HGNetV2Config(
+        stem_channels=list(bb.stem_channels),
+        stage_in_channels=list(bb.stage_in_channels),
+        stage_mid_channels=list(bb.stage_mid_channels),
+        stage_out_channels=list(bb.stage_out_channels),
+        stage_num_blocks=list(bb.stage_num_blocks),
+        stage_numb_of_layers=list(bb.stage_num_layers),
+        stage_downsample=list(bb.stage_downsample),
+        stage_light_block=list(bb.stage_light_block),
+        stage_kernel_size=list(bb.stage_kernel_size),
+        use_learnable_affine_block=True,
+        embedding_size=bb.stem_channels[1],
+        hidden_sizes=list(bb.stage_out_channels), depths=[1, 1, 1, 1],
+        out_features=["stage2", "stage3", "stage4"])
+    return HFDFineConfig(
+        backbone_config=backbone, num_labels=cfg.num_labels,
+        d_model=cfg.d_model, encoder_hidden_dim=cfg.encoder_hidden_dim,
+        encoder_in_channels=list(bb.stage_out_channels[1:]),
+        decoder_in_channels=[cfg.d_model] * 3,
+        decoder_layers=cfg.decoder_layers,
+        decoder_attention_heads=cfg.decoder_attention_heads,
+        num_attention_heads=cfg.encoder_attention_heads,
+        decoder_ffn_dim=cfg.decoder_ffn_dim,
+        encoder_ffn_dim=cfg.encoder_ffn_dim, num_queries=cfg.num_queries,
+        max_num_bins=cfg.max_num_bins, num_denoising=0,
+        anchor_image_size=None, eval_size=None,
+        hidden_expansion=cfg.hidden_expansion, eval_idx=-1)
+
+
+def score_hf(model: DFine, data: Data, size: int,
+             max_frames: int = PARITY_MAX_FRAMES) -> Dict:
+    """The port's weights exported into ``transformers``'
+    ``DFineForObjectDetection`` (strict load) and scored on the CPU in f32
+    on up to ``max_frames`` frames as the reference scores it (top 16 of
+    the sigmoid scores from ``THRESHOLD``), beside the largest logit and
+    box differences from the port's own CPU forward on the same frames.
+    Raises ``ImportError`` without ``transformers``."""
+    from transformers.models.d_fine.modeling_d_fine import (
+        DFineForObjectDetection,
+    )
+
+    hf = DFineForObjectDetection(hf_config(model.cfg)).eval()
+    hf.load_state_dict(dfine_import.export_state_dict(model, hf.state_dict()),
+                       strict=True)
+    port = DFine(model.cfg, device="cpu")
+    port.load_state_dict({k: v.detach().cpu() for k, v in
+                          model.state_dict().items()}, strict=True)
+    images = data["images"].cpu()
+    n = min(max_frames, images.shape[0])
+    preds, gts = [], []
+    d_logit = d_box = 0.0
+    for a in range(0, n, 8):
+        im = images[a:min(a + 8, n)]
+        with torch.no_grad():
+            out = hf(im.permute(0, 3, 1, 2).contiguous())
+        with torch.inference_mode():
+            mine = port(im)
+        d_logit = max(d_logit, float((out.logits - mine["logits"]).abs()
+                                     .max()))
+        d_box = max(d_box, float((out.pred_boxes - mine["pred_boxes"]).abs()
+                                 .max()))
+        probs = torch.sigmoid(out.logits).numpy()
+        for i in range(im.shape[0]):
+            t = a + i
+            p, b = probs[i], out.pred_boxes[i].numpy()
+            flat = p.reshape(-1)
+            k = min(MAX_DET, flat.size)
+            idx = np.argpartition(-flat, k - 1)[:k]
+            scores = flat[idx]
+            qi, ci = idx // p.shape[1], idx % p.shape[1]
+            keep = scores >= THRESHOLD
+            cx, cy, w, h = (b[qi[keep], j] for j in range(4))
+            preds.append({"boxes": np.stack(
+                [(cx - w / 2) * size, (cy - h / 2) * size,
+                 (cx + w / 2) * size, (cy + h / 2) * size], -1),
+                "scores": scores[keep], "classes": ci[keep]})
+            gm = data["mask"][t].cpu().numpy() > 0
+            gts.append({"boxes": data["boxes"][t].cpu().numpy()[gm],
+                        "classes": data["classes"][t].cpu().numpy()[gm]})
+    return {"map50": evaluate_map(preds, gts, num_classes=NUM_LABELS)
+            ["mAP@0.5"], "frames": n, "max_logit_delta": d_logit,
+            "max_box_delta": d_box}
+
+
+def export_round_trip(model: DFine) -> bool:
+    """The port's HF export without a template, converted back into a
+    fresh port model: every entry bit-equal."""
+    back, _ = dfine_import.convert_state_dict(
+        dfine_import.export_state_dict(model), DFine(model.cfg,
+                                                     device="cpu"))
+    return all(torch.equal(back[k], v.cpu())
+               for k, v in model.state_dict().items())
+
+
+def run_parity_small(args, dev: torch.device, size: int, steps: int,
+                     train_data: Data, val_data: Data) -> Dict:
+    """The reference's ``run_parity``: ``PARITY_SMALL`` trained on the
+    card, its EMA's mAP@0.5 (f32, bilinear), then the HF export scored
+    through ``transformers`` (:func:`score_hf`) or, without it, the export
+    round trip."""
+    print(f"parity_small: {steps} steps at batch {args.batch}", flush=True)
+    _, state, step_ms = train(train_data, steps, args.batch, size,
+                              log=lambda m: print(m, flush=True),
+                              cfg=PARITY_SMALL)
+    out: Dict = {"steps": steps,
+                 "median_ms_per_step": statistics.median(step_ms)}
+    with ema_weights(state) as model:
+        images = val_data["images"]
+        out["port_map50"] = _map50(lambda a, b: model(images[a:b]),
+                                   val_data, size)
+        print(f"  port mAP@0.5 (f32/bilinear) = {out['port_map50']:.4f}",
+              flush=True)
+        out["export_round_trip_exact"] = export_round_trip(model)
+        try:
+            out["torch"] = score_hf(model, val_data, size)
+        except ImportError as e:
+            out["torch"] = None
+            out["torch_reason"] = f"transformers does not import: {e}"
+    print(f"  HF D-FINE on the exported weights: {out['torch']}"
+          + (f" ({out['torch_reason']})" if out["torch"] is None else "")
+          + f"; export round trip bit-equal: "
+          f"{out['export_round_trip_exact']}", flush=True)
+    return out
+
+
 def card_line() -> Optional[str]:
     """``nvidia-smi``'s name and power limit of the first card."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -436,7 +626,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(
         prog="python -m pautdx_torch.eval.accuracy",
         description="Train D-FINE-nano on synthetic PAUT volumes and report "
-                    "mAP@0.5 in five inference arms.")
+                    "mAP@0.5 in six inference arms.")
     ap.add_argument("--steps", type=int, default=3000)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--quick", action="store_true",
@@ -450,7 +640,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--temporal", action="store_true",
                     help="the temporal arm instead: the trunk, then v1, v2 "
                          "and v3 over it on flickering sequences")
+    ap.add_argument("--parity-small", action="store_true",
+                    help="the reference's parity_small arm instead: the "
+                         "small HF-architecture config trained, exported "
+                         "and scored through transformers")
     args = ap.parse_args(argv)
+    if args.temporal and args.parity_small:
+        ap.error("--temporal and --parity-small are separate runs")
     t_start = time.perf_counter()
     dev = resolve_device(args.device)
     size = QUICK_IMG if args.quick else IMG
@@ -481,15 +677,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(f"  train frames {n_train}, val {n_val} at {size}px "
           f"({data_s:.1f} s)", flush=True)
 
+    if args.parity_small:
+        result = {"img_size": size, "train_frames": n_train,
+                  "val_frames": n_val,
+                  "parity_small": run_parity_small(args, dev, size, steps,
+                                                   train_data, val_data),
+                  "wall_s": time.perf_counter() - t_start,
+                  "device": device_record(dev)}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        print(json.dumps(result), flush=True)
+        return result
+
     print(f"training: {steps} steps at batch {args.batch}", flush=True)
     t0 = time.perf_counter()
     trainer, state, step_ms = train(train_data, steps, args.batch, size,
                                     log=lambda s: print(s, flush=True))
     train_s = time.perf_counter() - t0
+    calib = train_data["images"][:INT8_CALIB_FRAMES].clone()
     del train_data
-    maps = evaluate_arms(state, val_data, size)
-    print("mAP@0.5: " + ", ".join(f"{k} {v:.4f}" for k, v in maps.items()),
-          flush=True)
+    maps = evaluate_arms(state, val_data, size, calib_images=calib)
+    print("mAP@0.5: " + ", ".join(f"{k} {v:.4f}" for k, v in maps.items())
+          + f"; serving_int8 - serving "
+          f"{maps['serving_int8'] - maps['serving']:+.4f}", flush=True)
     grads = discrete_step_errors(state, val_data, size)
     for name, err in grads["leaves"].items():
         print(f"  discrete step, leaf {name}: relative gradient error "
@@ -504,6 +715,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "img_size": size, "steps": steps, "batch": args.batch,
         "train_frames": n_train, "val_frames": n_val,
         "map50": maps,
+        "serving_int8_minus_serving": maps["serving_int8"] - maps["serving"],
         "median_ms_per_step": statistics.median(step_ms) if step_ms else None,
         "train_s": train_s, "data_s": data_s,
         "wall_s": time.perf_counter() - t_start,

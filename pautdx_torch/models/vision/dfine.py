@@ -42,6 +42,7 @@ from pautdx_torch.models.vision.hgnet import (
 )
 from pautdx_torch.nn.blocks import Dropout
 from pautdx_torch.ops import attention, deformable
+from pautdx_torch.ops.qconv import Int8Site
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,8 +228,9 @@ class LayerNorm(nn.LayerNorm):
 _ACTS = {None: lambda x: x, "silu": F.silu, "relu": F.relu, "gelu": F.gelu}
 
 
-class ConvNorm(nn.Module):
-    """conv (no bias) + BN + optional act, NCHW."""
+class ConvNorm(Int8Site):
+    """conv (no bias) + BN + optional act, NCHW; an int8 site
+    (``ops.qconv.Int8Site``)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
                  stride: int = 1, groups: int = 1, act: Optional[str] = None,
@@ -241,7 +243,7 @@ class ConvNorm(nn.Module):
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.norm(self.conv(x)))
+        return self.act(self.norm(self.site_conv(self.conv, x)))
 
 
 class RepVggBlock(nn.Module):

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pautdx_torch.device import resolve_device
+from pautdx_torch.ops.qconv import Int8Site
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,8 +166,10 @@ class LearnableAffine(nn.Module):
         return self.scale * x + self.bias
 
 
-class ConvLayer(nn.Module):
-    """conv (no bias, symmetric (k-1)//2 padding) + BN + act (+ affine)."""
+class ConvLayer(Int8Site):
+    """conv (no bias, symmetric (k-1)//2 padding) + BN + act (+ affine);
+    an int8 site (``ops.qconv.Int8Site``): with a scale set, in eval mode,
+    the convolution runs s8 x s8 -> s32."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
                  stride: int = 1, groups: int = 1, act: bool = True,
@@ -180,7 +183,7 @@ class ConvLayer(nn.Module):
         self.lab = LearnableAffine() if act and lab else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.normalization(self.convolution(x))
+        x = self.normalization(self.site_conv(self.convolution, x))
         if self.act:
             x = F.relu(x)
             if self.lab is not None:

@@ -19,8 +19,8 @@ of all four flavours, ``DetectHead`` (with v11's DWConv cls branch),
 ``ProtoNet``, ``MaskCoeffHead``, ``YOLO``, ``anchor_points``,
 ``dfl_expectation`` and ``decode_boxes``. An unknown flavour raises
 ``ValueError``. The mask decode is
-``pautdx_torch.ops.masks.assemble_masks``; the int8 serving branch of
-``ConvBnSiLU`` waits for ROADMAP.md queue 1 item 13.
+``pautdx_torch.ops.masks.assemble_masks``; ``ConvBnSiLU``'s int8 serving
+branch is ``ops.qconv``'s (``serve.quantize`` calibrates it).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from torch import nn
 
 from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.hgnet import BatchNorm, init_params
+from pautdx_torch.ops.qconv import Int8Site
 
 STRIDES = (8, 16, 32)
 
@@ -104,12 +105,13 @@ class YoloConfig:
 FLAVOURS = ("v8", "v5", "v9c", "v11")
 
 
-class ConvBnSiLU(nn.Module):
+class ConvBnSiLU(Int8Site):
     """Ultralytics ``Conv``: conv (no bias) + BN (eps 1e-3, momentum 0.97 as
     ``pautdx/models/vision/yolo.py:149`` sets it) + SiLU; padding
     (k-1)//2 unless given. ``act=False`` gives the activation-free form
     (``RepConvN``'s branches, the PSA's qkv/proj/pe), ``groups=features``
-    gives ``DWConv``. The int8 serving branch is not ported."""
+    gives ``DWConv``. An int8 site (``ops.qconv.Int8Site``): with a scale
+    set, in eval mode, the convolution runs s8 x s8 -> s32."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 1,
                  stride: int = 1, padding: Optional[int] = None,
@@ -122,7 +124,7 @@ class ConvBnSiLU(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        x = self.bn(self.site_conv(self.conv, x))
         return F.silu(x) if self.act else x
 
 

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pautdx_torch"
 SOURCES = ("aifi_attention", "onehot_gather", "nms_suppress",
-           "assemble_masks", "weighted_gather")
+           "assemble_masks", "weighted_gather", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

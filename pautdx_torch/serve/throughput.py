@@ -9,6 +9,12 @@ frames, (B, 80, 80, 192) at 640px, with 1/255 folded into its weight.
 The streaming loop runs the model over the micro-batches of a
 (n_steps, B, ...) uint8 slab on the card; :func:`measure_fps` times it
 with CUDA events after a warm-up. CUDA graphs are later work.
+
+``build_serving_model(int8_calib=...)`` serves int8 activations: the 69
+conv sites of the HGNet stages and the hybrid encoder calibrated
+(``serve.quantize.calibrate_int8``) on uint8 wire batches shaped like the
+serving inputs, after the bf16 cast and the stem fold, as the reference's
+accuracy harness calibrates its ``uint8_raw`` graph.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from torch import nn
 
 from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.dfine import DFine, DFineConfig, dfine_nano
+from pautdx_torch.ops.qconv import set_int8_scales
+from pautdx_torch.serve.quantize import Quant, calibrate_int8
 
 
 @torch.no_grad()
@@ -95,6 +103,8 @@ class ServingModel:
     model: DFine
     cfg: DFineConfig
     batch: int
+    # the int8 sites' input scales, empty when serving dense
+    quant: Quant = dataclasses.field(default_factory=dict)
 
     def slab_shape(self, n_steps: int) -> Tuple[int, ...]:
         """A slab of ``n_steps`` micro-batches of prepatchified uint8
@@ -106,18 +116,31 @@ class ServingModel:
 
 def build_serving_model(device: Optional[Union[str, torch.device]] = None,
                         batch: int = 128, seed: int = 0,
-                        state_dict: Optional[dict] = None) -> ServingModel:
+                        state_dict: Optional[dict] = None,
+                        int8_calib=None) -> ServingModel:
     """The serving model of ``bench.py:79-100``: seeded init, or the float32
     weights and BN statistics of a trained ``dfine_nano(num_labels=2)`` in
     ``state_dict`` (the serving options take the same tensors), every
-    float32 weight and statistic cast to bf16, then the uint8 stem fold."""
+    float32 weight and statistic cast to bf16, then the uint8 stem fold.
+    With ``int8_calib`` (uint8 wire batches on ``device``, a slab or a
+    sequence of (B, 80, 80, 192) batches), the int8 sites are calibrated
+    on them and serve s8 x s8 -> s32 from then on."""
     dev = resolve_device(device)
     cfg = serving_config()
     model = DFine(cfg, device=dev, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     fold_uint8_stem(cast_params_bf16(model))
-    return ServingModel(model=model, cfg=cfg, batch=batch)
+    model.eval()
+    quant: Quant = {}
+    if int8_calib is not None:
+        if isinstance(int8_calib, torch.Tensor):
+            int8_calib = (list(int8_calib) if int8_calib.dim() == 5
+                          else [int8_calib])
+        with torch.inference_mode():
+            quant = calibrate_int8(model, int8_calib)
+        set_int8_scales(model, quant)
+    return ServingModel(model=model, cfg=cfg, batch=batch, quant=quant)
 
 
 def make_streaming_forward(model: Callable) -> Callable:

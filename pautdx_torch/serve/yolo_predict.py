@@ -19,7 +19,10 @@ class, as the reference's ``data.yaml``/``data-seg.yaml`` train them, on
 configuration is always served with its own.
 
 :func:`build_yolo_predictor` gives a :class:`YoloPredictor`, called on
-(B, H, W, 3) uint8 frames on its device. :func:`make_yolo_stream` runs it
+(B, H, W, 3) uint8 frames on its device; with ``int8_calib`` its
+``ConvBnSiLU`` sites serve int8 activations (``serve.quantize``),
+calibrated on the first batch it predicts, as the reference's
+``predict-bscan --quant int8`` does, or on frames given at build time. :func:`make_yolo_stream` runs it
 over the micro-batches of a (n_steps, B, H, W, 3) slab, and
 :func:`~pautdx_torch.serve.throughput.measure_fps` times that loop with
 CUDA events. All of it is eager PyTorch; CUDA graphs are later work.
@@ -39,6 +42,8 @@ from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.yolo import YOLO, YoloConfig, decode_boxes
 from pautdx_torch.ops import masks as mask_ops
 from pautdx_torch.ops.nms import dense_to_detections
+from pautdx_torch.ops.qconv import set_int8_scales
+from pautdx_torch.serve.quantize import Quant, calibrate_int8
 from pautdx_torch.serve.throughput import make_uint8_slab, measure_fps
 
 __all__ = ["CONFIGS", "IMG", "YoloPredictor", "build_yolo_predictor",
@@ -128,6 +133,25 @@ class YoloPredictor:
     model: YOLO
     cfg: YoloConfig
     nms_kw: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # int8 activations: the sites' scales, and whether the first batch
+    # predicted calibrates them
+    quant: Quant = dataclasses.field(default_factory=dict)
+    int8_on_first_batch: bool = False
+
+    @torch.no_grad()
+    def calibrate_int8(self, frames_u8) -> Quant:
+        """Calibrate the int8 sites on (B, H, W, 3) uint8 frames (or a
+        sequence of such batches) in the predict path's own input transform
+        and precision, and serve int8 from then on."""
+        batches = [frames_u8] if isinstance(frames_u8, torch.Tensor) \
+            else list(frames_u8)
+        with full_f32():
+            self.quant = calibrate_int8(
+                self.model, [_check_frames(b).to(torch.float32) / 255.0
+                             for b in batches])
+        set_int8_scales(self.model, self.quant)
+        self.int8_on_first_batch = False
+        return self.quant
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -139,29 +163,51 @@ class YoloPredictor:
 
     def __call__(self, frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) uint8 frames on the model's device, rescaled by
-        1/255 -> detections (and masks)."""
-        if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4:
-            raise TypeError(f"predict: want (B, H, W, 3) uint8 frames, got "
-                            f"{frames_u8.dtype} {tuple(frames_u8.shape)}")
+        1/255 -> detections (and masks); the first call calibrates the int8
+        sites when the predictor was built with ``int8_calib="first"``."""
+        _check_frames(frames_u8)
+        if self.int8_on_first_batch:
+            self.calibrate_int8(frames_u8)
         return self.forward(frames_u8.to(torch.float32) / 255.0)
+
+
+def _check_frames(frames_u8: torch.Tensor) -> torch.Tensor:
+    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4:
+        raise TypeError(f"predict: want (B, H, W, 3) uint8 frames, got "
+                        f"{frames_u8.dtype} {tuple(frames_u8.shape)}")
+    return frames_u8
 
 
 def build_yolo_predictor(variables: Optional[Mapping] = None,
                          device: Optional[Union[str, torch.device]] = None,
                          seed: int = 0, cfg: Optional[YoloConfig] = None,
-                         **nms_kw) -> YoloPredictor:
+                         int8_calib=None, **nms_kw) -> YoloPredictor:
     """``cfg`` (default YOLOv8n-seg) in f32 on ``device`` (default
     ``"cuda"``), TF32 off in every call (:func:`full_f32`), NMS at
     ``cfg``'s served settings with ``nms_kw`` over them (see
     :func:`postprocess`): the JAX package's ``variables`` loaded strictly when
     given, else a seeded init. An Ultralytics state dict loads afterwards
-    through ``compat.yolo_import.load_ultralytics_state_dict``."""
+    through ``compat.yolo_import.load_ultralytics_state_dict``.
+
+    ``int8_calib``: ``"first"`` serves int8 activations calibrated on the
+    first batch predicted (the reference's ``predict-bscan --quant
+    int8``); uint8 frames (a (B, H, W, 3) batch or a sequence of them)
+    calibrate now; a ``"quant"`` collection in ``variables`` sets the
+    reference's own scales."""
     dev = resolve_device(device)
     cfg = yolo_serving_config() if cfg is None else cfg
     model = YOLO(cfg, device=dev, seed=seed)
     if variables is not None:
         load_jax_variables(model, variables, device=dev)
-    return YoloPredictor(model=model, cfg=cfg, nms_kw=nms_kw)
+    pred = YoloPredictor(model=model, cfg=cfg, nms_kw=nms_kw)
+    if isinstance(int8_calib, str):
+        if int8_calib != "first":
+            raise ValueError(f"int8_calib: {int8_calib!r}; want 'first' or "
+                             f"uint8 frames")
+        pred.int8_on_first_batch = True
+    elif int8_calib is not None:
+        pred.calibrate_int8(int8_calib)
+    return pred
 
 
 def make_frame_slab(n_steps: int, batch: int, seed: int = 0,

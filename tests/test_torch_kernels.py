@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from pautdx_torch.ops import _build, attention, gather, masks, suppress
+from pautdx_torch.ops import (_build, attention, gather, masks, qconv,
+                              suppress)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -631,3 +632,74 @@ def test_yolo_flavour_postprocess_matches_plain(cuda, name, monkeypatch):
         assert got["masks"].shape == (2, 100, 160, 160)
         torch.testing.assert_close(got["masks"], want["masks"], atol=1e-5,
                                    rtol=0)
+
+
+# ------------------------------------------------------------ int8 conv
+
+# (N, C, H, W, Cout, k, stride, groups, layout): the serving sites' kinds
+# (dense 1x1 and 3x3, stride 2, depthwise k5 and k3 s2), YOLO's first
+# conv (C = 3, one value at a time), a channel slice of a channels-last
+# tensor, NCHW memory, ragged tiles
+INT8_CASES = [
+    (2, 64, 40, 40, 64, 1, 1, 1, "cl"), (2, 64, 20, 20, 64, 3, 1, 1, "cl"),
+    (2, 64, 40, 40, 128, 3, 2, 1, "cl"), (2, 320, 17, 19, 128, 1, 1, 1, "cl"),
+    (2, 64, 40, 40, 64, 5, 1, 64, "cl"), (2, 128, 40, 40, 128, 3, 2, 128,
+                                          "cl"),
+    (2, 3, 64, 64, 16, 3, 2, 1, "cl"), (2, 64, 21, 23, 72, 3, 1, 1, "slice"),
+    (3, 48, 13, 11, 40, 3, 1, 1, "nchw"), (2, 24, 9, 9, 24, 5, 1, 24,
+                                           "nchw")]
+
+
+def _int8_inputs(case, dtype, device, seed):
+    N, C, H, W, O, k, st, g, layout = case
+    gen = torch.Generator().manual_seed(seed)
+    c_all = 2 * C if layout == "slice" else C
+    x = torch.randn((N, c_all, H, W), generator=gen).to(dtype)
+    if layout != "nchw":
+        x = x.to(memory_format=torch.channels_last)
+    x = x.to(device)
+    if layout == "slice":
+        x = x[:, C:]
+    w = torch.randn((O, C // g, k, k), generator=gen).to(dtype).to(device)
+    s = float(x.float().abs().max()) / 127.0
+    return x, qconv.prepare_int8_weight(w, s, g), w, st, (k - 1) // 2, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_conv_kernel_matches_plain(cuda, case, dtype):
+    """The kernel's int32 accumulators and its dequantized output equal the
+    plain version's bit for bit, the output in the input's memory format;
+    one launch a call."""
+    x, prep, w, st, pad, g = _int8_inputs(case, getattr(torch, dtype),
+                                          cuda, seed=len(case) + case[1])
+    before = qconv.LAUNCHES
+    acc = qconv.int8_accumulators(x, prep, st, pad)
+    out = qconv.int8_conv(x, w, st, pad, g, None, prep)
+    torch.cuda.synchronize()
+    assert qconv.LAUNCHES == before + 2
+    want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
+    want = qconv.int8_conv_reference(x, w, st, pad, g, None, prep)
+    assert torch.equal(acc, want_acc)
+    assert out.dtype == want.dtype == x.dtype
+    assert torch.equal(out, want)
+    assert out.is_contiguous(memory_format=qconv.memory_format(x))
+    assert (qconv.memory_format(x) == torch.channels_last) == (
+        case[-1] != "nchw")
+
+
+def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.randn(1, 8, 6, 6, device=cuda)
+    w = torch.randn(8, 4, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="dense or depthwise"):
+        qconv.int8_conv(x, w, 1, 1, 2, 0.1)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        qconv.int8_conv(x.half(), torch.randn(8, 8, 3, 3, device=cuda),
+                        1, 1, 1, 0.1)
+    with pytest.raises(ValueError, match="not square"):
+        qconv.int8_conv(x, torch.randn(8, 8, 3, 3, device=cuda), (1, 2), 1,
+                        1, 0.1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qconv.int8_conv(x.requires_grad_(), torch.randn(8, 8, 3, 3,
+                                                        device=cuda),
+                        1, 1, 1, 0.1)

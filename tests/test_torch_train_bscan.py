@@ -66,8 +66,10 @@ def test_accuracy_quick_run(capsys):
     assert last["train_frames"] == last["val_frames"] == 60
     assert set(last["map50"]) == {"f32_bilinear", "f32_discrete",
                                   "bf16_bilinear", "bf16_discrete",
-                                  "serving"}
+                                  "serving", "serving_int8"}
     assert all(0.0 <= v <= 1.0 for v in last["map50"].values())
+    assert last["serving_int8_minus_serving"] == (
+        last["map50"]["serving_int8"] - last["map50"]["serving"])
     assert np.isfinite(last["median_ms_per_step"])
     assert last["discrete_step"]["limit"] == 1e-3
     assert last["device"]["nvidia_smi"] is None
