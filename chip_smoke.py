@@ -259,12 +259,16 @@ Phases, one line each, in order; any failure exits non-zero:
     D-FINE-nano serving forward (``build_serving_model(int8_calib=...)``,
     calibrated on a seeded 2 x 128 slab; 25 shapes, bf16) and the 66 of a
     b32 YOLOv8n-seg predict (``build_yolo_predictor(int8_calib="first")``;
-    40 shapes, f32): the int32 accumulators and the dequantized output bit
-    for bit (the plain version convolves the integer values in float64,
-    exact); each shape's device ms (L2 flushed), the plain version's,
-    cuDNN's bf16 convolution at the same shape (a yardstick, not the same
-    function) and the bound (input read once, output written once, int8
-    weights, at the HBM rate; int8 operations at 1,979 TOP/s);
+    40 shapes, f32): the route each shape takes (every site but YOLO's
+    3-channel stem on a TMA route, asserted; one launch a call on it), the
+    int32 accumulators and the dequantized output bit for bit (the plain
+    version convolves the integer values in float64, exact); each shape's
+    device ms (L2 flushed), the plain version's, cuDNN's bf16 convolution
+    at the same shape (a yardstick, not the same function), at 1x1 sites
+    ``torch._int_mm`` over the input already quantized (the same product)
+    and that quantization apart, and the bound (input read once, output
+    written once, int8 weights, at the HBM rate; int8 operations at 1,979
+    TOP/s); the host cost of a TMA map encode;
 33. int8 D-FINE-nano serving: the (8, 128, 80, 80, 192) slab of phase 6
     through the int8 model: launches (552 int8 convolutions, 8
     attentions, 24 one-hot gathers), finite outputs, detections through
@@ -3052,19 +3056,52 @@ def all_int8_inputs(captured: dict):
         qconv.int8_conv = saved
 
 
+def int_mm_times(torch, x, prep, want_acc) -> tuple:
+    """At a 1x1 stride-1 site: device ms of ``torch._int_mm`` over the input
+    already quantized and flattened channels-last (the same s8 x s8 -> s32
+    product, without the quantization and dequantization), the ms of that
+    quantization in plain PyTorch, and whether the product equals the
+    kernel's accumulators."""
+    N, C, H, W = x.shape
+    s = prep.in_scale.to(x.device)
+
+    def quantize():
+        return torch.clamp(torch.round(x.permute(0, 2, 3, 1).reshape(-1, C)
+                                       .float() / s), -127, 127).to(torch.int8)
+
+    xq = quantize().contiguous()
+    wt = prep.q.reshape(prep.q.shape[0], C).t()
+    try:
+        got = torch._int_mm(xq, wt)
+    except RuntimeError as e:   # a yardstick: its refusal fails nothing
+        print(f"[32 int8 conv] torch._int_mm refuses {tuple(xq.shape)} x "
+              f"{tuple(wt.shape)}: {e}", flush=True)
+        return None, None, None
+    same = torch.equal(got, want_acc.permute(0, 2, 3, 1).reshape(
+        -1, got.shape[1]))
+    return (device_ms(lambda: torch._int_mm(xq, wt), reps=5),
+            device_ms(quantize, reps=5), same)
+
+
 def int8_site_record(torch, key, args, calls: int) -> dict:
-    """Phase 32's check and times of one int8 site shape: the kernel's
-    int32 accumulators and dequantized output against the plain version's
-    bit for bit, then device times (L2 flushed) of the kernel, the plain
-    version and cuDNN's bf16 convolution at the same shape (a yardstick:
-    not the same function), and the bound: the input read once, the output
-    written once and the int8 weights at the HBM rate, against the int8
-    operations at the dense int8 peak."""
+    """Phase 32's check and times of one int8 site shape: the route the
+    wrapper picks, the kernel's int32 accumulators and dequantized output
+    against the plain version's bit for bit (one launch each, on that
+    route), then device times (L2 flushed) of the kernel, the plain
+    version and two yardsticks: cuDNN's bf16 convolution at the same shape
+    (not the same function) and, at 1x1 stride-1 sites, ``torch._int_mm``
+    (the same product, see :func:`int_mm_times`); and the bound: the input
+    read once, the output written once and the int8 weights at the HBM
+    rate, against the int8 operations at the dense int8 peak."""
     from pautdx_torch.ops import qconv
 
     F = torch.nn.functional
     x, w, st, pad, g, _, prep = args
     w = w.detach()
+    sp = qconv._pair(st, "stride")
+    route = qconv.int8_route(x.shape, x.stride(), x.element_size(),
+                             x.data_ptr(), prep.q.shape, sp, g)
+    before = dict(qconv.LAUNCHES_BY_ROUTE)
     acc = qconv.int8_accumulators(x, prep, st, pad)
     want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
     check(torch.equal(acc, want_acc), f"int8 conv {key}: the kernel's int32 "
@@ -3075,6 +3112,10 @@ def int8_site_record(torch, key, args, calls: int) -> dict:
     check(out.dtype == want.dtype and torch.equal(out, want),
           f"int8 conv {key}: the kernel's output differs from the plain "
           f"version's by {max_abs_err(out, want):.3g}")
+    check(qconv.LAUNCHES_BY_ROUTE == dict(before, **{route: before[route]
+                                                     + 2}),
+          f"int8 conv {key}: launches by route {qconv.LAUNCHES_BY_ROUTE}, "
+          f"want two more on {route} than {before}")
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     ms = device_ms(lambda: qconv.int8_conv(x, w, st, pad, g, None, prep),
                    reps=5)
@@ -3084,11 +3125,15 @@ def int8_site_record(torch, key, args, calls: int) -> dict:
                            reps=5)
     N, C, H, W = x.shape
     O, I, kh, kw = prep.q.shape
+    int_mm = (int_mm_times(torch, x, prep, want_acc)
+              if g == 1 and kh == 1 and sp == 1 else (None, None, None))
     nbytes = (x.numel() * x.element_size() + out.numel()
               * out.element_size() + prep.q.numel())
     ops = 2 * out.numel() * I * kh * kw
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
     return dict(calls=calls, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                int_mm_ms=int_mm[0], int_mm_quant_ms=int_mm[1],
+                int_mm_equal=int_mm[2], route=route, input_channels=C,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 nbytes=nbytes, ops=ops, depthwise=g > 1,
@@ -3101,12 +3146,24 @@ def int8_site_record(torch, key, args, calls: int) -> dict:
 def int8_forward_record(name: str, rows: list, launches: int,
                         what: str) -> dict:
     """The kernel line's record of the int8 convolution over one forward
-    of a path: each site shape's times and bound times its calls, summed."""
-    tot = {k: sum(r[k] * r["calls"] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "nbytes",
-                     "ops")}
+    of a path: each site shape's times and bound times its calls, summed;
+    beside them the dense and depthwise parts, the sites by route, and
+    ``torch._int_mm`` summed over the 1x1 sites with the kernel's own
+    time at those sites."""
+    def total(k, sel=lambda r: True):
+        return sum(r[k] * r["calls"] for r in rows if sel(r))
+
+    tot = {k: total(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "nbytes", "ops")}
     t_bytes = tot["nbytes"] / PEAK_BYTES_PER_S
     t_ops = tot["ops"] / PEAK_INT8_OPS_PER_S
+    one = lambda r: r["int_mm_ms"] is not None  # noqa: E731
+    parts = {kind: {k: total(k, lambda r, d=dw: r["depthwise"] == d)
+                    for k in ("ms", "library_ms", "bound_ms")}
+             for kind, dw in (("dense", False), ("depthwise", True))}
+    routes = {}
+    for r in rows:
+        routes[r["route"]] = routes.get(r["route"], 0) + r["calls"]
     return dict(
         name=name, route="cuda", source="pautdx_torch/csrc/int8_conv.cu",
         replaces="pautdx/ops/qconv.py:58 (XLA's s8 x s8 -> s32 "
@@ -3117,10 +3174,30 @@ def int8_forward_record(name: str, rows: list, launches: int,
         library_ms=tot["library_ms"],
         library_note="cuDNN's bf16 convolution at the same shapes, a "
                      "yardstick: no PyTorch call computes the int8 "
-                     "convolution",
+                     "convolution; at the 1x1 sites torch._int_mm computes "
+                     "its s8 x s8 -> s32 product (int_mm_ms, over input "
+                     "already quantized; int_mm_quant_ms that quantization)",
+        int_mm_ms=total("int_mm_ms", one),
+        int_mm_quant_ms=total("int_mm_quant_ms", one),
+        int_mm_kernel_ms=total("ms", one),
+        int_mm_bound_ms=total("bound_ms", one),
+        int_mm_sites=sum(r["calls"] for r in rows if one(r)),
+        parts=parts, sites_by_route=routes,
         shape=f"{what}: {sum(r['calls'] for r in rows)} sites of "
               f"{len(rows)} shapes, {tot['nbytes']} bytes, {tot['ops']} "
               f"int8 operations")
+
+
+def encode_us() -> float:
+    """Host microseconds one TMA map encode takes (the C library's own
+    timing over 2,000 encodes): each call on a TMA route encodes one."""
+    import ctypes
+
+    from pautdx_torch.ops import _build
+
+    fn = _build.load("int8_conv").pautdx_int8_encode_us
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_double
+    return fn(2000)
 
 
 def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
@@ -3175,12 +3252,26 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
             rows[path] = [int8_site_record(torch, key, args, n)
                           for key, (args, n) in cap.items()]
         for r in rows[path]:
+            int_mm = ("" if r["int_mm_ms"] is None else
+                      f", torch._int_mm {r['int_mm_ms']:.4f} (+ quantize "
+                      f"{r['int_mm_quant_ms']:.4f}; == accumulators: "
+                      f"{r['int_mm_equal']})")
             print(f"[32 int8 conv {path}] {r['shape']}, {r['calls']} "
-                  f"site(s) a forward: accumulators and output == plain; "
-                  f"device ms kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}"
-                  f", cuDNN bf16 {r['library_ms']:.4f}, bound "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+                  f"site(s) a forward, route {r['route']}: accumulators "
+                  f"and output == plain; device ms kernel {r['ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, cuDNN bf16 "
+                  f"{r['library_ms']:.4f}{int_mm}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}"
+                  f"{', half reached' if r['ms'] <= 2 * r['bound_ms'] else ''}"
+                  f")", flush=True)
+        # every site on a TMA route but YOLO's 3-channel stem
+        off = [r["shape"] for r in rows[path] if (r["route"] == "generic")
+               != (r["input_channels"] == 3)]
+        check(not off, f"int8 conv {path}: sites on the wrong route: {off}")
     del dcap, ycap
+    enc = encode_us()
+    tma_sites = sum(r["calls"] for path in rows for r in rows[path]
+                    if r["route"] != "generic")
     print(f"[32 int8 conv] kernel == plain bit for bit (int32 "
           f"accumulators and the dequantized output) at "
           f"{len(rows['dfine'])} D-FINE-nano serving site shapes (b{BATCH} "
@@ -3188,7 +3279,10 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
           f"{len(rows['yolo'])} YOLOv8n-seg site shapes (b{YOLO_BATCH} f32,"
           f" {sum(r['calls'] for r in rows['yolo'])} sites); "
           f"{time.perf_counter() - t0:.1f} s (set-up "
-          f"{setup_s:.1f} s)", flush=True)
+          f"{setup_s:.1f} s); host cost of the TMA map encodes "
+          f"{enc:.3f} us each, {tma_sites} of the {INT8_DFINE_SITES} + "
+          f"{INT8_YOLO_SITES} sites a forward on a TMA route "
+          f"({enc * tma_sites:.1f} us over both forwards)", flush=True)
 
     # 33. int8 D-FINE-nano serving
     t0 = time.perf_counter()
@@ -3307,11 +3401,18 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
         "int8_conv_yolov8n_seg", rows["yolo"], ycounts["int8_conv"],
         f"one b{YOLO_BATCH} f32 forward of YOLOv8n-seg"))
     for r in records:
+        parts = "; ".join(f"{k} kernel {v['ms']:.4f}, cuDNN bf16 "
+                          f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f}"
+                          for k, v in r["parts"].items() if v["ms"])
         print(f"[34 int8 conv record {r['name']}] {r['shape']}: device ms a "
               f"forward kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
               f"cuDNN bf16 {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']}); {r['launches']} launches over the slab",
-              flush=True)
+              f"({r['bound_by']}); {parts}; at the {r['int_mm_sites']} 1x1 "
+              f"sites kernel {r['int_mm_kernel_ms']:.4f}, torch._int_mm "
+              f"{r['int_mm_ms']:.4f} + quantize {r['int_mm_quant_ms']:.4f}, "
+              f"bound {r['int_mm_bound_ms']:.4f}; sites by route "
+              f"{r['sites_by_route']}; {r['launches']} launches over the "
+              f"slab", flush=True)
     return records
 
 

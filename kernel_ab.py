@@ -3,15 +3,19 @@
     python3 kernel_ab.py times [--tree DIR]
     python3 kernel_ab.py sass [--match NAME] [--out DIR] SRC.cu [SRC.cu ...]
     python3 kernel_ab.py mma
+    python3 kernel_ab.py phases
 
 ``times`` imports ``pautdx_torch`` from DIR (default: the checkout beside
 this script), builds its kernels and times each kernel record's wrapper at
 the main paths' shapes, on inputs made on the card from a fixed seed:
 device time per call from ``torch.profiler`` (``chip_smoke.device_ms``,
 the method of ``chip_smoke.py``'s kernel records), with L2 flushed before
-each call and without. The timing code is this checkout's whatever DIR
-is, so two checkouts run in turns in one call (parent, change, change,
-parent) are measured alike. The last line is one JSON object.
+each call and without; then the int8 convolution over one forward of each
+int8 serving path (its 25 or 40 site shapes, ``INT8_SITES``, each timed
+once and weighted by its sites). The timing code and the inputs are this
+checkout's whatever DIR is, so two checkouts run in turns in one call
+(parent, change, change, parent) are measured alike. The last line is one
+JSON object.
 
 ``sass`` compiles each source with the port's nvcc flags to a cubin and
 prints, for every kernel whose name holds NAME, its instruction count and
@@ -22,8 +26,14 @@ full listing there.
 m16n8k16 with f32 accumulators, 8 warps a block and 4 or 2 blocks an SM
 (32 or 16 warps), or one warp an SM, each warp issuing C independent
 chains (C = 1, 2, 4, 8): the rate an SM sustains, and, with one chain and
-one warp, the latency of one product. All three
-need the CUDA toolkit; ``times`` and ``mma`` need a card.
+one warp, the latency of one product.
+
+``phases`` builds a copy of ``csrc/int8_conv.cu`` with clock64() counters
+around each phase of the dense wgmma kernel's consumers (waiting for a
+TMA box, quantizing, the barrier, issuing and waiting for wgmma, the
+epilogue) and prints each phase's share at the heaviest dense site
+shapes. All four need the CUDA toolkit; ``times``, ``mma`` and ``phases``
+need a card.
 """
 
 from __future__ import annotations
@@ -38,6 +48,104 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# The 65 distinct int8 site shapes of the two serving paths, as the
+# serving forwards call them (one image's strides; the batch is 128 for
+# D-FINE-nano in bf16, 32 for YOLOv8n-seg in f32): (C, H, W, strides,
+# storage offset, weight OIHW, stride, groups, sites a forward).
+DFINE_SITES = [
+    (128, 80, 80, (819200, 1, 10240, 128), 0, (128, 1, 3, 3), 2, 128, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (64, 128, 1, 1), 1, 1, 1),
+    (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 1, 5, 5), 1, 64, 6),
+    (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 64, 1, 1), 1, 1, 12),
+    (320, 40, 40, (512000, 1, 12800, 320), 0, (128, 320, 1, 1), 1, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (256, 128, 1, 1), 1, 1, 2),
+    (256, 40, 40, (409600, 1, 10240, 256), 0, (64, 256, 1, 1), 1, 1, 1),
+    (448, 40, 40, (716800, 1, 17920, 448), 0, (128, 448, 1, 1), 1, 1, 1),
+    (256, 40, 40, (409600, 1, 10240, 256), 0, (256, 1, 3, 3), 2, 256, 1),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (128, 256, 1, 1), 1, 1, 1),
+    (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 1, 5, 5), 1, 128, 3),
+    (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 128, 1, 1), 1, 1, 3),
+    (640, 20, 20, (256000, 1, 12800, 640), 0, (256, 640, 1, 1), 1, 1, 1),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (512, 256, 1, 1), 1, 1, 1),
+    (256, 40, 40, (409600, 1, 10240, 256), 0, (256, 256, 1, 1), 1, 1, 1),
+    (128, 40, 40, (409600, 1, 10240, 256), 128, (64, 128, 1, 1), 1, 1, 2),
+    (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 64, 3, 3), 1, 1, 8),
+    (384, 40, 40, (614400, 1, 15360, 384), 0, (128, 384, 1, 1), 1, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 128, 1, 1), 1, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 1, 3, 3), 2, 128, 1),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (256, 256, 1, 1), 1, 1, 1),
+    (128, 20, 20, (102400, 1, 5120, 256), 128, (64, 128, 1, 1), 1, 1, 2),
+    (64, 20, 20, (25600, 1, 1280, 64), 0, (64, 64, 3, 3), 1, 1, 8),
+    (64, 20, 20, (25600, 1, 1280, 64), 0, (64, 64, 1, 1), 1, 1, 8),
+    (384, 20, 20, (153600, 1, 7680, 384), 0, (128, 384, 1, 1), 1, 1, 1)]
+YOLO_SITES = [
+    (3, 640, 640, (1228800, 1, 1920, 3), 0, (16, 3, 3, 3), 2, 1, 1),
+    (16, 320, 320, (1638400, 1, 5120, 16), 0, (32, 16, 3, 3), 2, 1, 1),
+    (32, 160, 160, (819200, 1, 5120, 32), 0, (32, 32, 1, 1), 1, 1, 1),
+    (16, 160, 160, (819200, 1, 5120, 32), 16, (16, 16, 3, 3), 1, 1, 1),
+    (16, 160, 160, (409600, 1, 2560, 16), 0, (16, 16, 3, 3), 1, 1, 1),
+    (48, 160, 160, (1228800, 1, 7680, 48), 0, (32, 48, 1, 1), 1, 1, 1),
+    (32, 160, 160, (819200, 1, 5120, 32), 0, (64, 32, 3, 3), 2, 1, 1),
+    (64, 80, 80, (409600, 1, 5120, 64), 0, (64, 64, 1, 1), 1, 1, 1),
+    (32, 80, 80, (409600, 1, 5120, 64), 32, (32, 32, 3, 3), 1, 1, 2),
+    (32, 80, 80, (204800, 1, 2560, 32), 0, (32, 32, 3, 3), 1, 1, 5),
+    (128, 80, 80, (819200, 1, 10240, 128), 0, (64, 128, 1, 1), 1, 1, 1),
+    (64, 80, 80, (409600, 1, 5120, 64), 0, (128, 64, 3, 3), 2, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 128, 1, 1), 1, 1, 1),
+    (64, 40, 40, (204800, 1, 5120, 128), 64, (64, 64, 3, 3), 1, 1, 3),
+    (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 64, 3, 3), 1, 1, 7),
+    (256, 40, 40, (409600, 1, 10240, 256), 0, (128, 256, 1, 1), 1, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (256, 128, 3, 3), 2, 1, 1),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (256, 256, 1, 1), 1, 1, 1),
+    (128, 20, 20, (102400, 1, 5120, 256), 128, (128, 128, 3, 3), 1, 1, 2),
+    (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 128, 3, 3), 1, 1, 2),
+    (384, 20, 20, (153600, 1, 7680, 384), 0, (256, 384, 1, 1), 1, 1, 3),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (128, 256, 1, 1), 1, 1, 1),
+    (512, 20, 20, (204800, 1, 10240, 512), 0, (256, 512, 1, 1), 1, 1, 1),
+    (384, 40, 40, (614400, 1, 15360, 384), 0, (128, 384, 1, 1), 1, 1, 1),
+    (192, 40, 40, (307200, 1, 7680, 192), 0, (128, 192, 1, 1), 1, 1, 3),
+    (192, 80, 80, (1228800, 1, 15360, 192), 0, (64, 192, 1, 1), 1, 1, 1),
+    (96, 80, 80, (614400, 1, 7680, 96), 0, (64, 96, 1, 1), 1, 1, 1),
+    (64, 80, 80, (409600, 1, 5120, 64), 0, (64, 64, 3, 3), 2, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 128, 3, 3), 2, 1, 1),
+    (64, 80, 80, (409600, 1, 5120, 64), 0, (64, 64, 3, 3), 1, 1, 5),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (64, 128, 3, 3), 1, 1, 2),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (64, 256, 3, 3), 1, 1, 2),
+    (64, 20, 20, (25600, 1, 1280, 64), 0, (64, 64, 3, 3), 1, 1, 2),
+    (64, 160, 160, (1638400, 1, 10240, 64), 0, (64, 64, 3, 3), 1, 1, 1),
+    (64, 160, 160, (1638400, 1, 10240, 64), 0, (32, 64, 1, 1), 1, 1, 1),
+    (64, 80, 80, (409600, 1, 5120, 64), 0, (32, 64, 3, 3), 1, 1, 1),
+    (128, 40, 40, (204800, 1, 5120, 128), 0, (32, 128, 3, 3), 1, 1, 1),
+    (32, 40, 40, (51200, 1, 1280, 32), 0, (32, 32, 3, 3), 1, 1, 1),
+    (256, 20, 20, (102400, 1, 5120, 256), 0, (32, 256, 3, 3), 1, 1, 1),
+    (32, 20, 20, (12800, 1, 640, 32), 0, (32, 32, 3, 3), 1, 1, 1)]
+INT8_SITES = {"dfine": DFINE_SITES, "yolo": YOLO_SITES}
+INT8_PATHS = (("dfine", 128, "bfloat16"), ("yolo", 32, "float32"))
+# the heaviest site shapes, by index, timed on their own
+INT8_HEAVY = {"dfine": {"3x3_64_40": 16, "1x1_448_128": 7,
+                        "1x1_640_256": 12, "dw_k5_40": 2, "dw_k3s2_80": 0},
+              "yolo": {"3x3_64_160": 33, "stem": 0}}
+
+
+def int8_site_call(torch, dev, site, batch: int, dtype, seed: int):
+    """A call of ``qconv.int8_conv`` at one site shape: the input a slice
+    of a channels-last tensor with the site's strides and offset, weights
+    in the input's dtype, the scale from the input's max, all from a
+    seed."""
+    from pautdx_torch.ops import qconv
+
+    C, H, W, strides, off, wshape, st, g, _ = site
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn((batch, strides[3] if C > 1 else C, H, W),
+                       generator=gen, device=dev).to(dtype)
+    x = base.to(memory_format=torch.channels_last)[:, off:off + C]
+    w = torch.randn(wshape, generator=gen, device=dev).to(dtype)
+    prep = qconv.prepare_int8_weight(w, float(x.float().abs().max()) / 127,
+                                     g)
+    pad = (wshape[2] - 1) // 2
+    return lambda: qconv.int8_conv(x, w, st, pad, g, None, prep)
 
 
 def kernel_calls(torch, dev) -> dict:
@@ -102,7 +210,30 @@ def kernel_calls(torch, dev) -> dict:
         calls["weighted_gather_backward" + suffix] = (
             lambda tf=tf, ti=ti, tw=tw, tg=tg:
             gather.weighted_gather_backward(tf, ti, tw, tg))
+    # the int8 convolution at the serving paths' heaviest site shapes
+    for path, batch, dtype in INT8_PATHS:
+        for name, i in INT8_HEAVY[path].items():
+            calls[f"int8_{path}_{name}"] = int8_site_call(
+                torch, dev, INT8_SITES[path][i], batch, getattr(torch, dtype),
+                i)
     return calls
+
+
+def int8_forward_ms(torch, dev, chip_smoke) -> dict:
+    """Device ms of the int8 convolution over one forward of each serving
+    path: every site shape once (L2 flushed), times its sites a forward,
+    summed; and split into dense and depthwise."""
+    out = {}
+    for path, batch, dtype in INT8_PATHS:
+        sums = {"all": 0.0, "dense": 0.0, "depthwise": 0.0}
+        for i, site in enumerate(INT8_SITES[path]):
+            fn = int8_site_call(torch, dev, site, batch, getattr(torch, dtype),
+                                i)
+            ms = chip_smoke.device_ms(fn, reps=5) * site[-1]
+            sums["all"] += ms
+            sums["depthwise" if site[7] > 1 else "dense"] += ms
+        out[path] = sums
+    return out
 
 
 def times(tree: str) -> None:
@@ -130,11 +261,119 @@ def times(tree: str) -> None:
             out[mode] = {name: chip_smoke.device_ms(fn)
                          for name, fn in calls.items()}
     chip_smoke.FLUSH_BYTES = flush
+    with torch.no_grad():
+        out["int8_forward"] = int8_forward_ms(torch, torch.device("cuda"),
+                                              chip_smoke)
     for name in calls:
         print(f"{name}: device ms per call, L2 flushed "
               f"{out['flushed'][name]:.4f}, warm {out['warm'][name]:.4f}",
               flush=True)
+    for path, sums in out["int8_forward"].items():
+        print(f"int8 convolutions over one {path} forward: device ms, L2 "
+              f"flushed, " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in sums.items()), flush=True)
     print(json.dumps(out))
+
+
+# phases: (text in csrc/int8_conv.cu, instrumented text); PROF(k, t) adds
+# clock64() - t to counter k from consumer thread 0 of every block (and
+# from the producer thread for k = 6)
+_PHASE_PATCHES = (
+    ("namespace {\n\nconstexpr int BM",
+     "namespace {\n__device__ unsigned long long g_prof[16];\n"
+     "#define PROF(k, t) do { if (tid == 0 || (k) == 6) atomicAdd(&g_prof[k],"
+     " (unsigned long long)(clock64() - (t))); } while (0)\n\n"
+     "constexpr int BM"),
+    ("      mbar_wait(full(slot), phase);\n      const uint8_t* raw =",
+     "      long long tq = clock64();\n      mbar_wait(full(slot), phase);\n"
+     "      PROF(0, tq);\n      tq = clock64();\n      const uint8_t* raw ="),
+    ("      __syncwarp();\n      if (lane == 0) mbar_arrive(empty(slot));",
+     "      PROF(1, tq);\n      __syncwarp();\n"
+     "      if (lane == 0) mbar_arrive(empty(slot));"),
+    ("        mbar_wait(empty(slot), phase ^ 1);",
+     "        { long long tp = clock64(); mbar_wait(empty(slot), phase ^ 1);"
+     " PROF(6, tp); }"),
+    ("    fence_proxy_async();\n    consumers_sync();",
+     "    long long t0 = clock64();\n    if (te) { PROF(5, te); te = 0; }\n"
+     "    fence_proxy_async();\n    consumers_sync();\n    PROF(2, t0);\n"
+     "    t0 = clock64();"),
+    ("    wg_commit();\n    if (i + 1 < items) quantize_item(i + 1, (i + 1) & 1);"
+     "\n    wg_wait_all();",
+     "    wg_commit();\n    PROF(3, t0);\n"
+     "    if (i + 1 < items) quantize_item(i + 1, (i + 1) & 1);\n"
+     "    t0 = clock64();\n    wg_wait_all();\n    PROF(4, t0);"),
+    ("    if (chunk != p.nchunks - 1) continue;",
+     "    if (chunk != p.nchunks - 1) continue;\n    te = clock64();"),
+    ("      wg * (p.wg_dy * p.s * p.RS + p.wg_dx * 16);",
+     "      wg * (p.wg_dy * p.s * p.RS + p.wg_dx * 16);\n  long long te = 0;"),
+    ("  if (items > 0) quantize_item(0, 0);\n"
+     "  if (p.b_resident && items > 0) mbar_wait(b_full(0), 0);",
+     "  long long tb = clock64();\n  if (items > 0) quantize_item(0, 0);\n"
+     "  if (p.b_resident && items > 0) mbar_wait(b_full(0), 0);\n"
+     "  PROF(7, tb);"),
+)
+_PHASES = ("waiting for a TMA box", "quantizing", "at the consumers' barrier",
+           "issuing wgmma", "waiting for wgmma", "epilogue", None,
+           "first chunk and resident weights")
+
+
+def phases() -> None:
+    """Where the dense wgmma kernel's consumers spend their time at the
+    heaviest dense site shapes: a copy of ``csrc/int8_conv.cu`` with
+    clock64() counters around each phase of consumer thread 0 of every
+    block, built and called through the wrapper; the producer's wait for a
+    free ring slot as a share of the same total."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from pautdx_torch.ops import _build, qconv
+
+    chip_smoke.check(torch.cuda.is_available(), "needs a card")
+    src = open(os.path.join(HERE, "pautdx_torch", "csrc",
+                            "int8_conv.cu")).read()
+    for old, new in _PHASE_PATCHES:
+        chip_smoke.check(src.count(old) == 1, f"phases: no unique {old!r}")
+        src = src.replace(old, new)
+    src += ("\nextern \"C\" int prof_read(void* out) { return "
+            "cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof)); }\n"
+            "extern \"C\" int prof_reset() { unsigned long long z[16] = {}; "
+            "return cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, so = os.path.join(tmp, "p.cu"), os.path.join(tmp, "p.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+    fn = lib.pautdx_int8_conv
+    fn.argtypes, fn.restype = qconv._ARGTYPES, ctypes.c_int
+    _build._FUNCS["pautdx_int8_conv"] = fn
+    dev = torch.device("cuda")
+    print(f"card {chip_smoke.smi_line()}", flush=True)
+    for path, batch, dtype in INT8_PATHS:
+        for name, i in INT8_HEAVY[path].items():
+            site = INT8_SITES[path][i]
+            if site[7] > 1 or site[0] == 3:
+                continue
+            call = int8_site_call(torch, dev, site, batch,
+                                  getattr(torch, dtype), i)
+            with torch.no_grad():
+                call()
+                torch.cuda.synchronize()
+                lib.prof_reset()
+                call()
+                torch.cuda.synchronize()
+            out = (ctypes.c_ulonglong * 16)()
+            lib.prof_read(out)
+            total = sum(out[k] for k in range(8) if k != 6) or 1
+            print(f"int8_{path}_{name}: consumer time by phase, "
+                  + ", ".join(f"{label} {out[k] / total:.2f}"
+                              for k, label in enumerate(_PHASES) if label)
+                  + f"; the producer waits for a free slot "
+                  f"{out[6] / total:.2f} of that", flush=True)
 
 
 _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_]*)")
@@ -273,11 +512,14 @@ def main() -> None:
     s.add_argument("--out", default="")
     s.add_argument("sources", nargs="+")
     sub.add_parser("mma")
+    sub.add_parser("phases")
     args = ap.parse_args()
     if args.cmd == "times":
         times(args.tree)
     elif args.cmd == "sass":
         sass(args.sources, args.match, args.out)
+    elif args.cmd == "phases":
+        phases()
     else:
         mma()
 

@@ -1,12 +1,13 @@
-"""Activation-int8 convolution for serving: the CUDA kernel
-``csrc/int8_conv.cu``, its plain PyTorch version, its launch counter, and
-the int8 branch that the conv + BN layers share.
+"""Activation-int8 convolution for serving: the CUDA kernels
+``csrc/int8_conv.cu``, their plain PyTorch version, the route choice and
+launch counters, and the int8 branch that the conv + BN layers share.
 
-Counterpart of ``pautdx/ops/qconv.py``. A site quantizes its INPUT with one
-calibrated per-tensor scale ``s`` (``serve.quantize`` collects them) and
-its weight per output channel, convolves s8 x s8 -> s32 and dequantizes,
-in the order the reference's compiled graph runs, so that the results are
-bit-equal:
+Counterpart of ``pautdx/ops/qconv.py``; the kernels replace XLA's s8 x s8 ->
+s32 convolution there (``conv_general_dilated`` at :58-62), not a Pallas
+kernel. A site quantizes its INPUT with one calibrated per-tensor scale
+``s`` (``serve.quantize`` collects them) and its weight per output
+channel, convolves s8 x s8 -> s32 and dequantizes, in the order the
+reference's compiled graph runs, so that the results are bit-equal:
 
     xq      = clip(round(x.float() / s), -127, 127)     (half to even)
     m       = max(max|w| over (I, kh, kw), 1e-12)        (per O, f32)
@@ -23,16 +24,35 @@ so the port keeps the compiled order. Tensors are NCHW, weights OIHW (the
 reference's NHWC / HWIO, reduced over its axes (0, 1, 2)). The weight
 side is computed once per site, on the host in f32, when the scale is set
 (:func:`prepare_int8_weight`), as the reference's trace hoists it out of
-its serving scan. PyTorch has no int8
-convolution that accumulates in int32 (``F.conv2d`` on int8 tensors wraps
-at 8 bits on the CPU), so the plain version convolves the integer values
-in float64, which is exact (every sum is below 2^53), with cuDNN off.
+its serving scan; it packs the weight for every route then. PyTorch has no
+int8 convolution that accumulates in int32 (``F.conv2d`` on int8 tensors
+wraps at 8 bits on the CPU), so the plain version convolves the integer
+values in float64, which is exact (every sum is below 2^53), with cuDNN
+off.
 
 On a CPU tensor :func:`int8_conv` runs the plain version; on a CUDA tensor
-it launches the kernel or raises: dense (``groups == 1``) and depthwise
+it launches one kernel or raises: dense (``groups == 1``) and depthwise
 (``groups == C == Cout``) convolutions of f32 or bf16 input with square
-kernels, strides and padding. ``LAUNCHES`` counts kernel launches and
-nothing else.
+kernels, strides and padding. What bounds the kernels on the card is the
+bytes (the input read once, the output written once), then the IEEE
+division of every input value. :func:`int8_route` picks the kernel from
+the shape alone, before the launch:
+
+- ``"wgmma"``, dense: the input's channels are its fastest dim and its
+  base, strides and C * element size are 16-byte multiples (TMA's rules),
+  kernel 1 or 3, stride 1 or 2. The block's N tile covers all of Cout (up
+  to 256; 256-wide tiles above), its raw input box arrives by TMA and is
+  quantized ONCE into an int8 tile in shared memory, halo included, from
+  which every tap's wgmma reads; so each value is divided once per N tile.
+- ``"dp4a"``, depthwise under the same layout rules, kernel 3 or 5,
+  stride 1 or 2: the raw halo box by TMA, quantized once per block.
+- ``"generic"``, everything else: NCHW input (the tests' ``nchw`` cases),
+  YOLO's 3-channel stem (its channels-last rows are 12 bytes, not a TMA
+  stride), misaligned slices, other kernels. The first design, mma.sync
+  with loads by threads, quantizing once per 64 output channels and tap.
+
+``LAUNCHES`` counts kernel launches and nothing else;
+``LAUNCHES_BY_ROUTE`` splits them by route.
 """
 
 from __future__ import annotations
@@ -49,22 +69,30 @@ from torch import nn
 from pautdx_torch.ops import _build
 
 LAUNCHES = 0
+ROUTES = ("wgmma", "dp4a", "generic")
+LAUNCHES_BY_ROUTE = {r: 0 for r in ROUTES}
 
 # f32(1 / 127), the constant XLA multiplies by where the reference divides
 _R127 = torch.tensor(np.float32(1.0 / 127.0))
-# the kernel's tile: output channels a block, int8 depth of a k-step
+# the generic kernel's tile: output channels a block, int8 depth of a
+# k-step; the wgmma route's input channels a chunk
 _BN, _BK = 64, 32
-# output kinds of the C entry point
+# the wgmma widths the dense route is built for
+_WGMMA_N = (16, 32, 48, 64, 80, 128, 256)
+# kernel sizes and strides the TMA routes take
+_WGMMA_K, _DP4A_K, _TMA_STRIDES = (1, 3), (3, 5), (1, 2)
+# output kinds and routes of the C entry point
 _OUT_F32, _OUT_BF16, _OUT_ACC = 0, 1, 2
+_ROUTE_ID = {"generic": 0, "wgmma": 1, "dp4a": 2}
 
 # x, x_bf16, N, C, H, W, sN, sC, sH, sW, wq, out_scale, in_scale, out,
 # out_kind, oN, oC, oH, oW, Cout, Ho, Wo, kh, kw, stride, pad, depthwise,
-# vec, Kp, stream
+# vec, Kp, route, nt, stream
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4
              + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p,
                                         ctypes.c_int]
-             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 10
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 12
              + [ctypes.c_void_p])
 
 Pair = Union[int, Tuple[int, int]]
@@ -74,10 +102,12 @@ Pair = Union[int, Tuple[int, int]]
 class Int8Weight:
     """One site's weight side, on the weight's device: ``q`` (O, I/g, kh,
     kw) int8, ``out_scale`` (O,) f32 (module docstring), ``in_scale`` 0-d
-    f32, ``packed`` the kernel's layout of ``q`` (dense:
-    (O rounded up to 64, K rounded up to 32) with k = (ky, kx, ci) and
-    zeros past the ends; depthwise: (O, kh * kw)), and the dense weight's
-    dtype, which the output promotes with."""
+    f32, ``packed`` the generic kernel's layout of ``q`` (dense: (O rounded
+    up to 64, K rounded up to 32) with k = (ky, kx, ci) and zeros past the
+    ends; depthwise: (O, kh * kw)), ``packed_tma`` the TMA routes' (dense:
+    :func:`pack_wgmma_weight`; depthwise: (O, kh, kw rounded up to 4),
+    four taps of a row a dp4a word), ``nt`` the dense route's N tile, and
+    the dense weight's dtype, which the output promotes with."""
 
     q: torch.Tensor
     in_scale: torch.Tensor
@@ -85,6 +115,8 @@ class Int8Weight:
     packed: torch.Tensor
     groups: int
     w_dtype: torch.dtype
+    packed_tma: Optional[torch.Tensor] = None
+    nt: int = 0
 
     @property
     def scale(self) -> float:
@@ -97,6 +129,37 @@ def _pair(v: Pair, what: str) -> int:
             raise ValueError(f"int8_conv: {what} {tuple(v)} is not square")
         v = v[0]
     return int(v)
+
+
+def wgmma_width(cout: int) -> int:
+    """The dense route's N tile: the narrowest wgmma width it is built for
+    that covers ``cout``, or 256 (several tiles) above that."""
+    return next((n for n in _WGMMA_N if n >= cout), _WGMMA_N[-1])
+
+
+def pack_wgmma_weight(q: torch.Tensor) -> torch.Tensor:
+    """The dense route's layout of an int8 OIHW weight ``q``: (N tiles,
+    input chunks of 32, taps ky * k + kx, nt / 8, 2, 8, 16), a k-step's
+    nt x 32 bytes K-major in 8-row x 16-byte core matrices (the second
+    index picks the chunk's channels 0-15 or 16-31), zeros past Cout and
+    past C."""
+    O, C, kh, kw = q.shape
+    nt = wgmma_width(O)
+    tiles, chunks = -(-O // nt), -(-C // _BK)
+    full = torch.zeros((tiles * nt, chunks * _BK, kh, kw), dtype=torch.int8)
+    full[:O, :C] = q
+    full = full.reshape(tiles, nt // 8, 8, chunks, 2, 16, kh * kw)
+    return full.permute(0, 3, 6, 1, 4, 2, 5).contiguous()
+
+
+def pack_dp4a_weight(q: torch.Tensor) -> torch.Tensor:
+    """The depthwise route's layout of an int8 (C, 1, k, k) weight: (C, k,
+    k rounded up to 4), zeros past k, so that each 4 bytes are one dp4a
+    word of four taps of a kernel row."""
+    C, _, kh, kw = q.shape
+    out = torch.zeros((C, kh, -(-kw // 4) * 4), dtype=torch.int8)
+    out[:, :, :kw] = q[:, 0]
+    return out
 
 
 @torch.no_grad()
@@ -118,16 +181,19 @@ def prepare_int8_weight(weight: torch.Tensor, in_scale, groups: int = 1
     O, I, kh, kw = q.shape
     if groups > 1 and I == 1:                    # depthwise
         packed = q.reshape(O, kh * kw).contiguous()
+        packed_tma, nt = pack_dp4a_weight(q), 0
     else:
         K = kh * kw * I
         packed = torch.zeros((-(-O // _BN) * _BN, -(-K // _BK) * _BK),
                              dtype=torch.int8)
         packed[:O, :K] = q.permute(0, 2, 3, 1).reshape(O, K)
+        packed_tma, nt = pack_wgmma_weight(q), wgmma_width(O)
     dev = weight.device
     return Int8Weight(q=q.to(dev), in_scale=s.to(dev),
                       out_scale=out_scale.to(dev),
                       packed=packed.to(dev), groups=int(groups),
-                      w_dtype=weight.dtype)
+                      w_dtype=weight.dtype, packed_tma=packed_tma.to(dev),
+                      nt=nt)
 
 
 def _prepared(weight, in_scale, groups, prepared) -> Int8Weight:
@@ -175,10 +241,42 @@ def memory_format(x: torch.Tensor) -> torch.memory_format:
     return torch.contiguous_format
 
 
+def _tma_strides(shape, strides) -> Tuple[int, int, int]:
+    """(sN, sH, sW) of an NCHW tensor, with the stride of every dim of size
+    1 replaced by the extent below it (any stride is valid there, and TMA
+    reads it)."""
+    N, C, H, W = shape
+    sN, _, sH, sW = strides
+    if W == 1:
+        sW = C
+    if H == 1:
+        sH = W * sW
+    if N == 1:
+        sN = H * sH
+    return sN, sH, sW
+
+
+def int8_route(shape, strides, element_size: int, address: int,
+               weight_shape, stride: int, groups: int) -> str:
+    """Which kernel takes a convolution of an NCHW input ``shape`` at
+    element ``strides`` (``element_size`` bytes, base ``address``) with an
+    OIHW ``weight_shape``: ``"wgmma"``, ``"dp4a"`` or ``"generic"``
+    (module docstring). Pure: decided from the shape before the launch."""
+    N, C, H, W = shape
+    O, I, kh, kw = weight_shape
+    sN, sH, sW = _tma_strides(shape, strides)
+    tma = (C > 1 and strides[1] == 1 and kh == kw and stride in _TMA_STRIDES
+           and address % 16 == 0 and (C * element_size) % 16 == 0
+           and all((v * element_size) % 16 == 0 for v in (sN, sH, sW)))
+    if groups > 1:
+        return "dp4a" if tma and kh in _DP4A_K else "generic"
+    return "wgmma" if tma and kh in _WGMMA_K else "generic"
+
+
 def _launch(x: torch.Tensor, prep: Int8Weight, stride: Pair, padding: Pair,
             out_dtype: torch.dtype) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output in the input's
-    memory format and launch."""
+    """Check what the kernels take, pick the route, allocate the output in
+    the input's memory format and launch."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise RuntimeError(f"int8_conv: no kernel for {x.device}")
@@ -215,21 +313,33 @@ def _launch(x: torch.Tensor, prep: Int8Weight, stride: Pair, padding: Pair,
         return out
     elt = x.element_size()
     sN, sC, sH, sW = x.stride()
-    vec = (not depthwise and C % 16 == 0 and sC == 1
-           and x.data_ptr() % 16 == 0
-           and all(s_ % (16 // elt) == 0 for s_ in (sN, sH, sW)))
+    route = int8_route(x.shape, x.stride(), elt, x.data_ptr(), prep.q.shape,
+                       st, prep.groups)
+    if route == "generic":
+        wq = prep.packed
+        vec = (not depthwise and C % 16 == 0 and sC == 1
+               and x.data_ptr() % 16 == 0
+               and all(s_ % (16 // elt) == 0 for s_ in (sN, sH, sW)))
+    else:
+        wq, vec = prep.packed_tma, False
+        sN, sH, sW = _tma_strides(x.shape, x.stride())
+    oN, oC, oH, oW = out.stride()
+    if route != "generic":
+        oN, oH, oW = _tma_strides(out.shape, out.stride())
     kind = {torch.float32: _OUT_F32, torch.bfloat16: _OUT_BF16,
             torch.int32: _OUT_ACC}[out_dtype]
     fn = _build.function("int8_conv", "pautdx_int8_conv", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), N, C, H, W,
-                sN, sC, sH, sW, prep.packed.data_ptr(),
+                sN, sC, sH, sW, wq.data_ptr(),
                 prep.out_scale.data_ptr(), float(prep.in_scale), out.data_ptr(),
-                kind, *out.stride(), O, Ho, Wo, kh, kw, st, pad,
-                int(depthwise), int(vec), prep.packed.shape[1], stream)
+                kind, oN, oC, oH, oW, O, Ho, Wo, kh, kw, st, pad,
+                int(depthwise), int(vec), prep.packed.shape[1],
+                _ROUTE_ID[route], prep.nt, stream)
         LAUNCHES += 1
-    _build.check(rc, "int8_conv")
+        LAUNCHES_BY_ROUTE[route] += 1
+    _build.check(rc, f"int8_conv ({route} route)")
     return out
 
 

@@ -10,6 +10,7 @@ The kernel tests skip without a card (a CUDA kernel has no CPU mode); the
 build tests run anywhere.
 """
 
+import importlib.util
 import os
 import stat
 
@@ -639,7 +640,13 @@ def test_yolo_flavour_postprocess_matches_plain(cuda, name, monkeypatch):
 # (N, C, H, W, Cout, k, stride, groups, layout): the serving sites' kinds
 # (dense 1x1 and 3x3, stride 2, depthwise k5 and k3 s2), YOLO's first
 # conv (C = 3, one value at a time), a channel slice of a channels-last
-# tensor, NCHW memory, ragged tiles
+# tensor, NCHW memory, ragged tiles; then the wgmma and dp4a routes' edges:
+# Cout 512 (two N tiles), ragged Cout (40, 72), C 16 and 48 (a chunk
+# padded to 32 channels), a 1x1 with K 640, 3x3 stride 2 with weights
+# streamed by chunk (128 -> 256, too big to stay in shared memory), a
+# slice 8 channels in (16-byte aligned), ragged spatial tiles (17 x 19),
+# depthwise with C not a multiple of 64; inputs with zeros, subnormals and
+# values at +-s/2 (the quantizer's shortcut to 0) and at +-1.5 s (ties)
 INT8_CASES = [
     (2, 64, 40, 40, 64, 1, 1, 1, "cl"), (2, 64, 20, 20, 64, 3, 1, 1, "cl"),
     (2, 64, 40, 40, 128, 3, 2, 1, "cl"), (2, 320, 17, 19, 128, 1, 1, 1, "cl"),
@@ -647,22 +654,54 @@ INT8_CASES = [
                                           "cl"),
     (2, 3, 64, 64, 16, 3, 2, 1, "cl"), (2, 64, 21, 23, 72, 3, 1, 1, "slice"),
     (3, 48, 13, 11, 40, 3, 1, 1, "nchw"), (2, 24, 9, 9, 24, 5, 1, 24,
-                                           "nchw")]
+                                           "nchw"),
+    (2, 256, 20, 20, 512, 1, 1, 1, "cl"), (1, 32, 12, 12, 512, 3, 1, 1, "cl"),
+    (2, 32, 15, 13, 40, 1, 1, 1, "cl"), (2, 16, 33, 35, 16, 3, 1, 1, "cl"),
+    (2, 16, 34, 30, 32, 3, 2, 1, "cl"), (2, 48, 19, 17, 32, 1, 1, 1, "cl"),
+    (2, 48, 18, 20, 40, 3, 2, 1, "cl"), (2, 640, 20, 20, 256, 1, 1, 1, "cl"),
+    (2, 128, 20, 20, 256, 3, 2, 1, "cl"), (2, 64, 17, 19, 64, 3, 1, 1, "cl"),
+    (2, 32, 17, 19, 48, 3, 1, 1, "off8"), (2, 64, 30, 26, 64, 1, 1, 1,
+                                           "off8"),
+    (2, 96, 20, 20, 96, 5, 1, 96, "cl"), (2, 40, 33, 31, 40, 3, 2, 40, "cl"),
+    (1, 160, 21, 19, 160, 3, 1, 160, "off8"), (2, 72, 17, 15, 72, 5, 2, 72,
+                                               "cl"),
+    (2, 64, 20, 20, 64, 3, 1, 1, "edge"), (2, 96, 24, 24, 128, 1, 1, 1,
+                                           "edge"),
+    (2, 64, 21, 21, 64, 5, 1, 64, "edge")]
 
 
 def _int8_inputs(case, dtype, device, seed):
     N, C, H, W, O, k, st, g, layout = case
     gen = torch.Generator().manual_seed(seed)
-    c_all = 2 * C if layout == "slice" else C
+    c_all = {"slice": 2 * C, "off8": C + 16}.get(layout, C)
     x = torch.randn((N, c_all, H, W), generator=gen).to(dtype)
     if layout != "nchw":
         x = x.to(memory_format=torch.channels_last)
     x = x.to(device)
     if layout == "slice":
         x = x[:, C:]
+    elif layout == "off8":
+        x = x[:, 8:8 + C]
     w = torch.randn((O, C // g, k, k), generator=gen).to(dtype).to(device)
     s = float(x.float().abs().max()) / 127.0
+    if layout == "edge":
+        x[:, :, ::3] = 0
+        x[:, 1::4, 1::3] *= 1e-39
+        x[:, ::5, 2::6] = s / 2
+        x[:, 2::5, 2::6] = -s / 2
+        x[:, 3::5, 2::6] = 1.5 * s
+        x[:, 4::5, 5::6] = torch.finfo(dtype).tiny / 4
     return x, qconv.prepare_int8_weight(w, s, g), w, st, (k - 1) // 2, g
+
+
+def _want_route(case, dtype) -> str:
+    """The route a case must take: the TMA routes for channels-last inputs
+    whose rows are 16-byte multiples, the generic kernel else."""
+    N, C, H, W, O, k, st, g, layout = case
+    elt = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    if layout == "nchw" or (C * elt) % 16:
+        return "generic"
+    return "dp4a" if g > 1 else "wgmma"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -670,14 +709,20 @@ def _int8_inputs(case, dtype, device, seed):
 def test_int8_conv_kernel_matches_plain(cuda, case, dtype):
     """The kernel's int32 accumulators and its dequantized output equal the
     plain version's bit for bit, the output in the input's memory format;
-    one launch a call."""
+    one launch a call, on the route the shape calls for."""
     x, prep, w, st, pad, g = _int8_inputs(case, getattr(torch, dtype),
                                           cuda, seed=len(case) + case[1])
+    route = _want_route(case, dtype)
+    assert qconv.int8_route(x.shape, x.stride(), x.element_size(),
+                            x.data_ptr(), prep.q.shape, st, g) == route
     before = qconv.LAUNCHES
+    by_route = dict(qconv.LAUNCHES_BY_ROUTE)
     acc = qconv.int8_accumulators(x, prep, st, pad)
     out = qconv.int8_conv(x, w, st, pad, g, None, prep)
     torch.cuda.synchronize()
     assert qconv.LAUNCHES == before + 2
+    assert qconv.LAUNCHES_BY_ROUTE == dict(by_route, **{
+        route: by_route[route] + 2})
     want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
     want = qconv.int8_conv_reference(x, w, st, pad, g, None, prep)
     assert torch.equal(acc, want_acc)
@@ -686,6 +731,79 @@ def test_int8_conv_kernel_matches_plain(cuda, case, dtype):
     assert out.is_contiguous(memory_format=qconv.memory_format(x))
     assert (qconv.memory_format(x) == torch.channels_last) == (
         case[-1] != "nchw")
+
+
+def _kernel_ab():
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", os.path.join(ROOT, "kernel_ab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path,batch,elt", [("dfine", 128, 2),
+                                            ("yolo", 32, 4)])
+def test_int8_route_at_every_serving_site(path, batch, elt):
+    """Pure Python, no card: every site of the two serving forwards but
+    YOLO's 3-channel stem takes a TMA route (wgmma dense, dp4a
+    depthwise); the stem, whose channels-last rows are 12 bytes, the
+    generic kernel. A base 256 bytes into an allocation stands for the
+    allocator's alignment."""
+    sites = _kernel_ab().INT8_SITES[path]
+    assert sum(site[-1] for site in sites) == {"dfine": 69, "yolo": 66}[path]
+    routes = []
+    for C, H, W, strides, offset, wshape, st, g, _ in sites:
+        routes.append(qconv.int8_route((batch, C, H, W), strides, elt,
+                                       256 + offset * elt, wshape, st, g))
+        want = ("generic" if C == 3 else "dp4a" if g > 1 else "wgmma")
+        assert routes[-1] == want, (C, H, W, wshape, st, g)
+    assert routes.count("generic") == (path == "yolo")
+
+
+def test_kernel_ab_phase_anchors_match_the_kernel_source():
+    """``kernel_ab.py phases`` instruments a copy of the int8 kernel source
+    by text: every anchor it patches occurs exactly once there."""
+    with open(os.path.join(ROOT, "pautdx_torch", "csrc", "int8_conv.cu")) as f:
+        src = f.read()
+    for old, _ in _kernel_ab()._PHASE_PATCHES:
+        assert src.count(old) == 1, old
+
+
+@pytest.mark.parametrize("shape", [(72, 48, 3, 3), (512, 256, 1, 1),
+                                   (16, 16, 3, 3), (40, 32, 1, 1),
+                                   (256, 128, 3, 3)])
+def test_int8_wgmma_weight_unpacks_to_q(shape):
+    """The dense route's packed weight, read back by its documented layout
+    (N tile, 32-channel chunk, tap, 8-row group, 16-channel half, row,
+    byte), is ``q`` with zeros past Cout and C."""
+    O, C, k, _ = shape
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(O + C))
+    prep = qconv.prepare_int8_weight(w, 0.05)
+    nt = prep.nt
+    assert nt == qconv.wgmma_width(O) and nt >= min(O, 256)
+    assert nt % 16 == 0 and (O <= 256 or nt == 256)
+    p = prep.packed_tma.numpy()
+    tiles, chunks = -(-O // nt), -(-C // 32)
+    assert p.shape == (tiles, chunks, k * k, nt // 8, 2, 8, 16)
+    got = np.zeros((tiles * nt, chunks * 32, k, k), dtype=np.int8)
+    for t, j, tap, ng, h, r, b in np.ndindex(*p.shape):
+        got[t * nt + ng * 8 + r, j * 32 + h * 16 + b, tap // k,
+            tap % k] = p[t, j, tap, ng, h, r, b]
+    q = prep.q.numpy()
+    assert np.array_equal(got[:O, :C], q)
+    assert not got[O:].any() and not got[:, C:].any()
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_int8_dp4a_weight_unpacks_to_q(k):
+    """The depthwise route's packed weight: row ky of channel c is the
+    kernel row's k taps, then zeros to a multiple of four bytes."""
+    w = torch.randn((40, 1, k, k), generator=torch.Generator().manual_seed(k))
+    prep = qconv.prepare_int8_weight(w, 0.05, groups=40)
+    p = prep.packed_tma.numpy()
+    assert p.shape == (40, k, 4 * -(-k // 4)) and prep.nt == 0
+    assert np.array_equal(p[:, :, :k], prep.q.numpy()[:, 0])
+    assert not p[:, :, k:].any()
 
 
 def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
