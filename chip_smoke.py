@@ -10,11 +10,13 @@ D-FINE training through their entry points, and the signal domain: the
 21-model zoo and HybridBinary served through ``SignalEndpoint``, then
 trained through ``train.signal.train_signal``, and int8 activations in
 serving (D-FINE-nano and YOLOv8n-seg through the s8 x s8 -> s32
-convolution kernel), the HF D-FINE bridge and the C++ volume reader.
+convolution kernel), the HF D-FINE bridge and the C++ volume reader, and
+last the command line, ``python -m pautdx_torch.cli``, every subcommand.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --signal-train    # phases 29-31 alone
     python3 chip_smoke.py --int8            # phases 32-35 alone
+    python3 chip_smoke.py --cli             # phase 36 alone
 
 Phases, one line each, in order; any failure exits non-zero:
 
@@ -268,7 +270,10 @@ Phases, one line each, in order; any failure exits non-zero:
     ``torch._int_mm`` over the input already quantized (the same product)
     and that quantization apart, and the bound (input read once, output
     written once, int8 weights, at the HBM rate; int8 operations at 1,979
-    TOP/s); the host cost of a TMA map encode;
+    TOP/s); the host cost of a TMA map encode; and the first captured
+    site of each route (wgmma, dp4a, generic) with NaN and +-inf written
+    into a copy of its input, kernel against plain version bit for bit
+    (NaN quantizes to 0, +-inf to +-127);
 33. int8 D-FINE-nano serving: the (8, 128, 80, 80, 192) slab of phase 6
     through the int8 model: launches (552 int8 convolutions, 8
     attentions, 24 one-hot gathers), finite outputs, detections through
@@ -287,7 +292,35 @@ Phases, one line each, in order; any failure exits non-zero:
     (``compat.dfine_import``) and converted back into a fresh model, every
     entry bit-equal, detections matched by assignment; phase 19's volumes
     written again and parsed by the C++ reader (``native``, asserted
-    built and taken), bit-equal to the numpy path.
+    built and taken), bit-equal to the numpy path;
+36. the command line on the card (``pautdx_torch.cli.main`` in this
+    process with ``--device cuda``, over phase 19's four volumes and the
+    signal volumes of phases 29-31): (a) ``predict-bscan`` at 640px
+    (four 60-frame forwards) for D-FINE-nano (default, ``--fused-attn``,
+    ``--prepatch``, ``--quant int8``) and YOLO ``--flavour`` v8, v5, v9c
+    and v11, each in f32 and ``--quant int8``, each through the kernels
+    (four volumes) and through the plain versions (the first volume, which
+    is also the int8 calibration request): launches gated per forward (3
+    weighted gathers a D-FINE forward, the attention once with
+    ``--fused-attn``, the int8 convolution at every calibrated site, one
+    NMS sweep a YOLO forward; the int8 calibration forward adds 3
+    gathers; none through the plain versions), every arm with
+    detections, D-FINE's by :func:`same_detections`' rule on the first
+    volume, YOLO's equal there, ``--prepatch`` equal to the default run;
+    in every int8 arm each site's captured input through the int8 kernel
+    and its plain version, accumulators and output bit for bit; the YOLO
+    flavours' int8 site shapes that YOLOv8n-seg lacks written to
+    ``chiprun_out/cli_int8_sites.json``; (c) ``train-bscan`` for both
+    detectors (1 epoch, 320px, b4), ``predict-bscan`` and ``inspect`` from
+    the D-FINE checkpoint, ``train-temporal --tiny``: losses finite,
+    checkpoints restored; (d) ``train-signal`` (HybridBinary, 1 epoch),
+    ``eval-signal``, ``predict-signal --heatmaps``, ``export
+    --polymorphic`` (the artifact within 1e-5 of the model on the card);
+    (b) two processes side by side: ``python -m pautdx_torch.cli
+    predict-bscan``, its detections against (a)'s default run, and
+    ``bridge`` with two requests (both answered at their own shapes, the
+    checkpoint loaded once); (e) ``build-dataset --yolo``, ``explain``,
+    ``inspect --mode signal``; each subcommand's wall seconds.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -3083,6 +3116,37 @@ def int_mm_times(torch, x, prep, want_acc) -> tuple:
             device_ms(quantize, reps=5), same)
 
 
+def int8_site_equal(torch, key, args) -> tuple:
+    """The int8 kernel at one captured site against its plain version: the
+    int32 accumulators and the dequantized output equal bit for bit, one
+    launch each on the route the wrapper picks. Returns (route, output,
+    the plain accumulators)."""
+    from pautdx_torch.ops import qconv
+
+    x, w, st, pad, g, _, prep = args
+    w = w.detach()
+    route = qconv.int8_route(x.shape, x.stride(), x.element_size(),
+                             x.data_ptr(), prep.q.shape,
+                             qconv._pair(st, "stride"), g)
+    before = dict(qconv.LAUNCHES_BY_ROUTE)
+    with torch.inference_mode():
+        acc = qconv.int8_accumulators(x, prep, st, pad)
+        want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
+        out = qconv.int8_conv(x, w, st, pad, g, None, prep)
+        want = qconv.int8_conv_reference(x, w, st, pad, g, None, prep)
+    check(torch.equal(acc, want_acc), f"int8 conv {key}: the kernel's int32 "
+          f"accumulators differ from the plain version's in "
+          f"{int((acc != want_acc).sum())} places")
+    check(out.dtype == want.dtype and torch.equal(out, want),
+          f"int8 conv {key}: the kernel's output differs from the plain "
+          f"version's by {max_abs_err(out, want):.3g}")
+    check(qconv.LAUNCHES_BY_ROUTE == dict(before, **{route: before[route]
+                                                     + 2}),
+          f"int8 conv {key}: launches by route {qconv.LAUNCHES_BY_ROUTE}, "
+          f"want two more on {route} than {before}")
+    return route, out, want_acc
+
+
 def int8_site_record(torch, key, args, calls: int) -> dict:
     """Phase 32's check and times of one int8 site shape: the route the
     wrapper picks, the kernel's int32 accumulators and dequantized output
@@ -3099,23 +3163,7 @@ def int8_site_record(torch, key, args, calls: int) -> dict:
     x, w, st, pad, g, _, prep = args
     w = w.detach()
     sp = qconv._pair(st, "stride")
-    route = qconv.int8_route(x.shape, x.stride(), x.element_size(),
-                             x.data_ptr(), prep.q.shape, sp, g)
-    before = dict(qconv.LAUNCHES_BY_ROUTE)
-    acc = qconv.int8_accumulators(x, prep, st, pad)
-    want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
-    check(torch.equal(acc, want_acc), f"int8 conv {key}: the kernel's int32 "
-          f"accumulators differ from the plain version's in "
-          f"{int((acc != want_acc).sum())} places")
-    out = qconv.int8_conv(x, w, st, pad, g, None, prep)
-    want = qconv.int8_conv_reference(x, w, st, pad, g, None, prep)
-    check(out.dtype == want.dtype and torch.equal(out, want),
-          f"int8 conv {key}: the kernel's output differs from the plain "
-          f"version's by {max_abs_err(out, want):.3g}")
-    check(qconv.LAUNCHES_BY_ROUTE == dict(before, **{route: before[route]
-                                                     + 2}),
-          f"int8 conv {key}: launches by route {qconv.LAUNCHES_BY_ROUTE}, "
-          f"want two more on {route} than {before}")
+    route, out, want_acc = int8_site_equal(torch, key, args)
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     ms = device_ms(lambda: qconv.int8_conv(x, w, st, pad, g, None, prep),
                    reps=5)
@@ -3141,6 +3189,48 @@ def int8_site_record(torch, key, args, calls: int) -> dict:
                       f"{' channels-last' if x.stride(1) == 1 else ''}, "
                       f"w {tuple(prep.q.shape)}, stride {st}, pad {pad}, "
                       f"groups {g}")
+
+
+def int8_nonfinite_check(torch, captured: list) -> str:
+    """Phase 32's check of non-finite inputs: the first captured site of
+    each route, its input copied with NaN (quantized to 0) and +inf and
+    -inf (to +-127) written in, through the kernel and the plain version:
+    the int32 accumulators and the output equal bit for bit, the output
+    finite. Fails unless the wgmma, dp4a and generic routes are all
+    covered."""
+    from pautdx_torch.ops import qconv
+
+    seen = {}
+    for (x, w, st, pad, g, _, prep), _n in captured:
+        route = qconv.int8_route(x.shape, x.stride(), x.element_size(),
+                                 x.data_ptr(), prep.q.shape,
+                                 qconv._pair(st, "stride"), g)
+        if route in seen:
+            continue
+        with torch.inference_mode():
+            x = x.clone()
+            x[:, ::3, ::4, 1::5] = float("nan")
+            x[:, 1::3, 2::4, ::7] = float("inf")
+            x[:, 2::3, 1::5, 3::6] = -float("inf")
+            acc = qconv.int8_accumulators(x, prep, st, pad)
+            want_acc = qconv.int8_accumulators_reference(x, prep, st, pad)
+            out = qconv.int8_conv(x, w.detach(), st, pad, g, None, prep)
+            want = qconv.int8_conv_reference(x, w.detach(), st, pad, g,
+                                             None, prep)
+        torch.cuda.synchronize()
+        shape = f"x {tuple(x.shape)} {x.dtype}, w {tuple(prep.q.shape)}"
+        check(torch.equal(acc, want_acc),
+              f"int8 conv, NaN/inf input {shape}: the accumulators differ "
+              f"from the plain version's in {int((acc != want_acc).sum())} "
+              f"places")
+        check(torch.equal(out, want) and bool(torch.isfinite(out).all()),
+              f"int8 conv, NaN/inf input {shape}: the output differs from "
+              f"the plain version's or is not finite")
+        seen[route] = shape
+    check(set(seen) == {"wgmma", "dp4a", "generic"},
+          f"int8 conv, NaN/inf inputs: routes covered {sorted(seen)}, want "
+          f"wgmma, dp4a and generic")
+    return "; ".join(f"{r}: {v}" for r, v in sorted(seen.items()))
 
 
 def int8_forward_record(name: str, rows: list, launches: int,
@@ -3268,6 +3358,8 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
         off = [r["shape"] for r in rows[path] if (r["route"] == "generic")
                != (r["input_channels"] == 3)]
         check(not off, f"int8 conv {path}: sites on the wrong route: {off}")
+    nonfinite = int8_nonfinite_check(torch, list(dcap.values())
+                                     + list(ycap.values()))
     del dcap, ycap
     enc = encode_us()
     tma_sites = sum(r["calls"] for path in rows for r in rows[path]
@@ -3282,7 +3374,9 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
           f"{setup_s:.1f} s); host cost of the TMA map encodes "
           f"{enc:.3f} us each, {tma_sites} of the {INT8_DFINE_SITES} + "
           f"{INT8_YOLO_SITES} sites a forward on a TMA route "
-          f"({enc * tma_sites:.1f} us over both forwards)", flush=True)
+          f"({enc * tma_sites:.1f} us over both forwards); with NaN and "
+          f"+-inf in the input, kernel == plain bit for bit on every route "
+          f"({nonfinite})", flush=True)
 
     # 33. int8 D-FINE-nano serving
     t0 = time.perf_counter()
@@ -3475,6 +3569,446 @@ def host_phase(torch, dev) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 36: predict-bscan's arms: (tag, flags); each runs through the
+# kernels and through the plain versions
+CLI_DFINE_ARMS = (("dfine", ()), ("dfine fused-attn", ("--fused-attn",)),
+                  ("dfine prepatch", ("--prepatch",)),
+                  ("dfine int8", ("--quant", "int8")))
+CLI_YOLO_FLAVOURS = ("v8", "v5", "v9c", "v11")
+CLI_SIZE = 640
+CLI_TRAIN_SIZE = 320
+
+
+def detections_rule(got: dict, want: dict) -> str:
+    """:func:`same_detections`' rule on two ``detections.json``: per frame,
+    features [box / size, score], a bijection by assignment, all but at
+    most 4 pairs within 2e-3 and the median within 1e-3, equal labels for
+    the pairs within 2e-3. Returns "" or why not."""
+    if got.keys() != want.keys():
+        return f"sequences {sorted(got)} vs {sorted(want)}"
+    for seq in want:
+        if len(got[seq]) != len(want[seq]):
+            return f"{seq}: {len(got[seq])} vs {len(want[seq])} frames"
+        for t, (g, w) in enumerate(zip(got[seq], want[seq])):
+            if len(g) != len(w):
+                return f"{seq} frame {t}: {len(g)} vs {len(w)} detections"
+            if not g:
+                continue
+
+            def feats(dets):
+                return np.array([[*(np.array(d["box"]) / CLI_SIZE),
+                                  d["score"]] for d in dets])
+
+            cost = np.linalg.norm(feats(g)[:, None] - feats(w)[None], axis=-1)
+            m = matched_costs(cost)
+            if (m < 2e-3).sum() < len(m) - 4 or np.median(m) >= 1e-3:
+                return (f"{seq} frame {t}: worst matched costs "
+                        f"{np.sort(m)[-6:]}, median {np.median(m):.3g}")
+            from scipy.optimize import linear_sum_assignment
+            r, c = linear_sum_assignment(cost)
+            if any(g[i]["label"] != w[j]["label"] for i, j in zip(r, c)
+                   if cost[i, j] < 2e-3):
+                return f"{seq} frame {t}: labels differ in matched pairs"
+    return ""
+
+
+@contextmanager
+def cli_forwards(torch, counters: dict, log: list, sites: list):
+    """For a while, every detector forward ``pautdx_torch.cli`` builds
+    appends (frames, launches it made) to ``log``, and every int8
+    calibration the number of sites it calibrated to ``sites``."""
+    from pautdx_torch import cli
+    from pautdx_torch.serve import quantize
+
+    build, calibrate = cli.build_detector_forward, quantize.calibrate_int8
+
+    def counted_build(*args, **kw):
+        forward = build(*args, **kw)
+
+        def counted(frames):
+            before = launch_counts(counters)
+            out = forward(frames)
+            torch.cuda.synchronize()
+            after = launch_counts(counters)
+            log.append((frames.shape[0], {k: after[k] - before[k]
+                                          for k in after}))
+            return out
+
+        return counted
+
+    def counted_calibrate(model, batches):
+        quant = calibrate(model, batches)
+        sites.append(len(quant))
+        return quant
+
+    cli.build_detector_forward = counted_build
+    quantize.calibrate_int8 = counted_calibrate
+    try:
+        yield
+    finally:
+        cli.build_detector_forward = build
+        quantize.calibrate_int8 = calibrate
+
+
+def cli_run(label: str, argv: list, timings: list) -> float:
+    """``pautdx_torch.cli.main(argv + --device cuda)`` in this process;
+    (``label``, its wall seconds) is appended to ``timings``."""
+    import torch
+
+    from pautdx_torch import cli
+
+    t0 = time.perf_counter()
+    cli.main(list(argv) + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    timings.append((label, s))
+    return s
+
+
+def cli_processes(jobs: dict, root: str, timeout: float) -> dict:
+    """Start every job ``{name: (argv, stdin text)}`` at once as ``python
+    -m pautdx_torch.cli argv`` (the checkout on ``PYTHONPATH``, its output
+    in files under ``root``) and wait for all of them; returns ``{name:
+    (exit code, stdout, stderr, wall seconds from the start)}``. A process
+    still running at ``timeout`` seconds, or when this fails, is killed."""
+    procs, files, res = {}, [], {}
+    t0 = time.perf_counter()
+    try:
+        for name, (argv, stdin) in jobs.items():
+            base = os.path.join(root, f"proc_{name}")
+            with open(base + ".in", "w") as f:
+                f.write(stdin)
+            fds = [open(base + ".in"), open(base + ".out", "w"),
+                   open(base + ".err", "w")]
+            files += fds
+            procs[name] = (base, subprocess.Popen(
+                [sys.executable, "-m", "pautdx_torch.cli", *argv], cwd=HERE,
+                stdin=fds[0], stdout=fds[1], stderr=fds[2],
+                env=dict(os.environ, PYTHONPATH=HERE)))
+        while len(res) < len(procs):
+            check(time.perf_counter() - t0 < timeout,
+                  f"cli processes {sorted(set(procs) - set(res))} still "
+                  f"running after {timeout} s")
+            for name, (base, p) in procs.items():
+                if name not in res and p.poll() is not None:
+                    res[name] = (p.returncode, read_text(base + ".out"),
+                                 read_text(base + ".err"),
+                                 time.perf_counter() - t0)
+            time.sleep(0.05)
+        return res
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+
+
+def read_text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def kernel_ab_module():
+    """``kernel_ab.py`` beside this script, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", os.path.join(HERE, "kernel_ab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def cli_phase(torch, dev, counters: dict, wrappers: dict,
+              none: dict) -> None:
+    """Phase 36: the command line on the card, in this process through
+    ``pautdx_torch.cli.main`` and once as ``python -m pautdx_torch.cli``
+    (see the module docstring)."""
+    from pautdx_torch import cli
+    from pautdx_torch.ops import qconv
+    from pautdx_torch.models.vision.temporal_dfine import TemporalDFine
+    from pautdx_torch.models.vision.yolo import YOLO, YoloConfig
+    from pautdx_torch.serve.export import load_exported
+    from pautdx_torch.train.checkpoint import (
+        CheckpointManager, load_model_state, restore_dfine,
+    )
+    from pautdx_torch.train.signal import restore_signal_model
+    from pautdx_torch.train.temporal import tiny_temporal_config
+    from pautdx_torch.viz import have_matplotlib
+
+    set_tf32(False)
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data, sig = os.path.join(root, "data"), os.path.join(root, "signals")
+    write_volumes(data)
+    write_signal_volumes(sig)
+    # the plain versions' runs go over the first volume alone, which is
+    # also the int8 arms' calibration request
+    data1 = os.path.join(root, "data1")
+    os.makedirs(data1)
+    shutil.copy(os.path.join(data, "vol0.json"), data1)
+    out = lambda *p: os.path.join(root, *p)  # noqa: E731
+    timings: list = []
+
+    # (a) predict-bscan through the kernels and the plain versions
+    runs, new_sites = {}, {}
+    checks_s = {"plain arms": 0.0, "int8 site checks": 0.0}
+    known = {(C, H, W, tuple(w), st, g) for C, H, W, _, _, w, st, g, _ in
+             kernel_ab_module().INT8_SITES["yolo"]}
+    arms = [(tag, ("--detector", "dfine") + flags)
+            for tag, flags in CLI_DFINE_ARMS]
+    arms += [(f"yolo {f}{' int8' if q else ''}",
+              ("--detector", "yolo", "--flavour", f)
+              + (("--quant", "int8") if q else ()))
+             for f in CLI_YOLO_FLAVOURS for q in (False, True)]
+    for tag, flags in arms:
+        for arm in ("kernels", "plain"):
+            log, sites, cap = [], [], {}
+            name = f"pred {tag} {arm}".replace(" ", "_")
+            argv = ["predict-bscan", "--data",
+                    data1 if arm == "plain" else data, "--out", out(name),
+                    "--size", str(CLI_SIZE), *flags]
+            ctx = plain_kernels(wrappers) if arm == "plain" else nullcontext()
+            grab = (all_int8_inputs(cap) if arm == "kernels"
+                    and tag.endswith("int8") else nullcontext())
+            with ctx, grab, cli_forwards(torch, counters, log, sites):
+                s_run = cli_run(f"predict-bscan {tag}", argv,
+                                timings if arm == "kernels" else [])
+            if arm == "plain":
+                checks_s["plain arms"] += s_run
+            runs[tag, arm] = read_json(out(name, "detections.json"))
+            n_vols = 1 if arm == "plain" else 4
+            check(len(log) == n_vols and sum(n for n, _ in log)
+                  == 60 * n_vols,
+                  f"cli {tag} {arm}: forwards {[n for n, _ in log]}")
+            n_dets = sum(len(f) for s in runs[tag, arm].values() for f in s)
+            check(n_dets > 0, f"cli {tag} {arm}: no detections")
+            if arm == "plain":
+                check(all(c == none for _, c in log),
+                      f"cli {tag}: the plain run launched {log}")
+                continue
+            klog = log
+            per_forward = {k: v for k, v in log[-1][1].items() if v}
+            if tag.startswith("dfine"):
+                want = dict(none, weighted_gather=3)
+                if "fused" in tag:
+                    want["aifi_attention"] = 1
+            else:
+                want = dict(none, nms_suppress=1)
+            if tag.endswith("int8"):
+                check(len(sites) == 1, f"cli {tag}: {len(sites)} "
+                      f"calibrations")
+                want["int8_conv"] = sites[0]
+                if tag.startswith("dfine"):
+                    check(sites[0] == INT8_DFINE_SITES,
+                          f"cli {tag}: {sites[0]} sites")
+            for i, (_, got) in enumerate(log):
+                expect = dict(want)
+                if i == 0 and tag == "dfine int8":   # the calibration
+                    expect["weighted_gather"] = 6    # forward's gathers
+                check(got == expect, f"cli {tag}: forward {i} launched "
+                      f"{got}, want {expect}")
+            # every site of the arm against the plain version, bit for bit
+            routes, t0 = {}, time.perf_counter()
+            for key, (args, _) in cap.items():
+                route = int8_site_equal(torch, key, args)[0]
+                routes[route] = routes.get(route, 0) + 1
+            checks_s["int8 site checks"] += time.perf_counter() - t0
+            if tag.endswith("int8"):
+                check(sum(routes.values()) > 0, f"cli {tag}: no int8 site "
+                      f"captured")
+                print(f"[36 cli int8 sites] {tag}: {len(cap)} site shapes "
+                      f"({routes} by route), accumulators and output == "
+                      f"plain", flush=True)
+            for key, (args, n) in cap.items():
+                if tag.startswith("dfine"):
+                    continue
+                x, w, st, pad, g = args[:5]
+                if isinstance(st, (tuple, list)) and len(set(st)) == 1:
+                    st = st[0]
+                shape = (x.shape[1], x.shape[2], x.shape[3],
+                         tuple(w.shape), st, g)
+                if shape not in known:
+                    new_sites.setdefault(tag.split()[1], []).append(
+                        [x.shape[1], x.shape[2], x.shape[3],
+                         list(x.stride()), x.storage_offset(),
+                         list(w.shape), st, g, n // 4])
+        want = runs[tag, "plain"]
+        got = {seq: runs[tag, "kernels"][seq] for seq in want}
+        if tag.startswith("dfine"):
+            why = detections_rule(got, want)
+        else:
+            why = "" if got == want else "detections differ"
+        check(not why, f"cli {tag}: kernels vs plain: {why}")
+        n = sum(len(f) for s in runs[tag, "kernels"].values() for f in s)
+        n1 = sum(len(f) for s in want.values() for f in s)
+        print(f"[36 cli predict-bscan] {tag}: {len(klog)} forwards of "
+              f"{[n_ for n_, _ in klog]} frames, launches a forward "
+              f"{per_forward}, none through the plain versions; {n} "
+              f"detections; on the first volume ({n1} detections) kernels "
+              f"vs plain "
+              f"{'equal' if got == want else 'by the D-FINE rule'}",
+              flush=True)
+    check(runs["dfine prepatch", "kernels"] == runs["dfine", "kernels"],
+          "cli: --prepatch detections differ from the default run's")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "cli_int8_sites.json"),
+              "w") as f:
+        json.dump(new_sites, f)
+    print(f"[36 cli int8 sites] the YOLO flavours' int8 site shapes that "
+          f"YOLOv8n-seg serving has not: "
+          + "; ".join(f"{k}: {len(v)}" for k, v in new_sites.items())
+          + " (chiprun_out/cli_int8_sites.json)", flush=True)
+
+    # (c) training
+    for det in ("dfine", "yolo"):
+        cli_run(f"train-bscan {det}", [
+                 "train-bscan", "--data", data, "--out", out(f"tb_{det}"),
+                 "--detector", det, "--epochs", "1", "--size",
+                 str(CLI_TRAIN_SIZE), "--batch-size", "4"], timings)
+        hist = read_json(out(f"tb_{det}", "history.json"))
+        check(all(np.isfinite(v).all() for v in hist.values()),
+              f"cli train-bscan {det}: history {hist}")
+        state, meta = CheckpointManager(out(f"tb_{det}")).restore("latest")
+        if det == "dfine":
+            restore_dfine(out("tb_dfine"), device=dev)
+        else:
+            load_model_state(YOLO(YoloConfig(num_classes=1), device=dev),
+                             state)
+    log, sites = [], []
+    with cli_forwards(torch, counters, log, sites):
+        cli_run("predict-bscan trained dfine", [
+                 "predict-bscan", "--data", data, "--out", out("tb_pred"),
+                 "--checkpoint", out("tb_dfine"), "--size",
+                 str(CLI_TRAIN_SIZE)], timings)
+        cli_run("inspect bscan", [
+                 "inspect", "--data", data, "--mode", "bscan", "--out",
+                 out("inspect.html"), "--checkpoint", out("tb_dfine"),
+                 "--size", str(CLI_TRAIN_SIZE)], timings)
+    check(len(log) == 8 and all(c == dict(none, weighted_gather=3)
+                                for _, c in log),
+          f"cli predict/inspect from the trained checkpoint: {log}")
+    check(os.path.getsize(out("inspect.html")) > 10000,
+          "cli inspect: the page is empty")
+    cli_run("train-temporal --tiny", [
+             "train-temporal", "--data", data, "--out", out("tt"),
+             "--tiny", "--seq-len", "4", "--epochs", "1"], timings)
+    losses = read_json(out("tt", "history.json"))["loss"]
+    check(len(losses) > 0 and np.isfinite(losses).all(),
+          f"cli train-temporal: losses {losses[:5]}")
+    state, meta = CheckpointManager(out("tt")).restore("latest")
+    tmodel = TemporalDFine(tiny_temporal_config(2), variant="v3",
+                           num_temporal_labels=3, temporal_heads=4,
+                           device=dev)
+    load_model_state(tmodel, state)
+    print(f"[36 cli train] train-bscan dfine and yolo (1 epoch, "
+          f"{CLI_TRAIN_SIZE}px, b4) finite and restored; predict-bscan and "
+          f"inspect from the D-FINE checkpoint, 3 weighted gathers a "
+          f"forward; train-temporal --tiny: {len(losses)} steps, losses "
+          f"finite, restored", flush=True)
+
+    # (d) signals
+    cli_run("train-signal", [
+             "train-signal", "--data", sig, "--out", out("ts"),
+             "--epochs", "1"], timings)
+    check(os.path.exists(out("ts", "history.png")) == have_matplotlib(),
+          "cli train-signal: history.png")
+    cli_run("eval-signal", [
+             "eval-signal", "--data", sig, "--checkpoint", out("ts"),
+             "--out", out("ev")], timings)
+    report = read_json(out("ev", "metrics.json"))
+    check(0.0 <= report["accuracy"] <= 1.0, f"cli eval-signal: {report}")
+    cli_run("predict-signal --heatmaps", [
+             "predict-signal", "--data", sig, "--checkpoint", out("ts"),
+             "--out", out("ps"), "--heatmaps"], timings)
+    probs = read_json(out("ps", "predictions.json"))
+    check(len(probs) == len(VOLUME_SEEDS)
+          and all(np.isfinite(v["probabilities"]).all()
+                  for v in probs.values()), "cli predict-signal")
+    cli_run("export --polymorphic", [
+             "export", "--checkpoint", out("ts"), "--out",
+             out("ex", "m.pt2"), "--batch", "4", "--polymorphic"], timings)
+    model, meta = restore_signal_model(out("ts"), device=dev)
+    run = load_exported(out("ex", "m.pt2"))
+    x = torch.randn((3, 50, 320), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    with torch.no_grad():
+        want = model(x)
+    got = run(x)
+    err = max(max_abs_err(g, w) for g, w in zip(
+        torch.utils._pytree.tree_leaves(got),
+        torch.utils._pytree.tree_leaves(want)))
+    check(err <= 1e-5, f"cli export: the artifact differs by {err:.3g}")
+    # (b) the entry point and the bridge, as two processes side by side
+    reqs = [np.random.default_rng(6).normal(size=s).astype(np.float32)
+            for s in ((7, 320), (2, 13, 320))]
+    procs = cli_processes({
+        "entry": (["predict-bscan", "--data", data, "--out", out("entry"),
+                   "--detector", "dfine", "--size", str(CLI_SIZE)], ""),
+        "bridge": (["bridge", "--checkpoint", out("ts")],
+                   "\n".join(json.dumps({"signals": r.tolist()})
+                             for r in reqs))}, root, timeout=600)
+    rc, _, stderr, secs = procs["entry"]
+    timings.append(("python -m pautdx_torch.cli predict-bscan (process, "
+                    "beside the bridge)", secs))
+    check(rc == 0, f"python -m pautdx_torch.cli exited {rc}: "
+          f"{stderr[-2000:]}")
+    entry = read_json(out("entry", "detections.json"))
+    same = entry == runs["dfine", "kernels"]
+    why = "" if same else detections_rule(entry, runs["dfine", "kernels"])
+    check(not why, f"cli entry point vs in-process: {why}")
+    print(f"[36 cli entry] python -m pautdx_torch.cli predict-bscan exit 0; "
+          f"detections {'equal to' if same else 'by the D-FINE rule against'}"
+          f" the in-process default run", flush=True)
+    rc, stdout, stderr, secs = procs["bridge"]
+    timings.append(("bridge (process, 2 requests, beside the entry point)",
+                    secs))
+    check(rc == 0, f"cli bridge exited {rc}: {stderr[-2000:]}")
+    answers = [json.loads(line) for line in stdout.splitlines()]
+    check(len(answers) == 2 and stderr.count("bridge: loaded") == 1,
+          f"cli bridge: {len(answers)} answers, stderr {stderr[-500:]}")
+    for r, a in zip(reqs, answers):
+        xr = torch.from_numpy(r[None] if r.ndim == 2 else r).to(dev)
+        with torch.no_grad():
+            p = model(xr)
+        p = p["prob"] if isinstance(p, dict) else p
+        e = max_abs_err(torch.tensor(a["prob"], device=dev), p)
+        check(np.array(a["prob"]).shape == tuple(xr.shape[:2]) and e <= 1e-5,
+              f"cli bridge: answer {np.array(a['prob']).shape} off by {e}")
+    print(f"[36 cli signals] train-signal HybridBinary 1 epoch, eval-signal "
+          f"accuracy {report['accuracy']:.4f}, predict-signal --heatmaps "
+          f"({len(probs)} volumes), export .pt2 within {err:.3g} of the "
+          f"model on the card; bridge: 2 requests answered at their own "
+          f"shapes, the checkpoint loaded once", flush=True)
+
+    # (e) host subcommands
+    cli_run("build-dataset --yolo", ["build-dataset", "--data", data,
+                                     "--out", out("ds"), "--yolo"], timings)
+    check(os.path.exists(out("ds", "yolo", "data.yaml")), "build-dataset")
+    t0 = time.perf_counter()
+    cli.main(["explain", "--out", out("xp")])
+    timings.append(("explain", time.perf_counter() - t0))
+    check(len(os.listdir(out("xp"))) == 7, "cli explain: pages")
+    cli_run("inspect signal", [
+             "inspect", "--data", sig, "--mode", "signal", "--out",
+             out("sig.html"), "--checkpoint", out("ts")], timings)
+    for name, s in timings:
+        print(f"[36 cli seconds] {name}: {s:.2f} s", flush=True)
+    print(f"[36 cli] {len(timings)} subcommand runs on the card in "
+          f"{time.perf_counter() - t_phase:.1f} s, of which "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in checks_s.items())
+          + f"; {smi_line()}", flush=True)
+    del model, run, tmodel
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -3531,6 +4065,13 @@ def main() -> None:
     if sys.argv[1:] == ["--signal-train"]:     # phases 29-31 alone
         print(f"[1 device] {smi_line()}", flush=True)
         signal_train_phases(torch, dev, counters, none)
+        return
+    if sys.argv[1:] == ["--cli"]:              # phase 36 alone
+        print(f"[1 device] {smi_line()}", flush=True)
+        print(f"[2 build] {_build.build():.2f} s of parallel nvcc",
+              flush=True)
+        cli_phase(torch, dev, counters, wrappers, none)
+        print(f"[wall] {time.perf_counter() - t_start:.1f} s", flush=True)
         return
     if sys.argv[1:] == ["--int8"]:             # phases 32-35 alone
         print(f"[1 device] {smi_line()}", flush=True)
@@ -3889,6 +4430,7 @@ def main() -> None:
     kernels += int8_phases(torch, dev, counters, wrappers, none,
                            fps["kernels"])
     host_phase(torch, dev)
+    cli_phase(torch, dev, counters, wrappers, none)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

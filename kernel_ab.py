@@ -121,7 +121,89 @@ YOLO_SITES = [
     (32, 40, 40, (51200, 1, 1280, 32), 0, (32, 32, 3, 3), 1, 1, 1),
     (256, 20, 20, (102400, 1, 5120, 256), 0, (32, 256, 3, 3), 1, 1, 1),
     (32, 20, 20, (12800, 1, 640, 32), 0, (32, 32, 3, 3), 1, 1, 1)]
-INT8_SITES = {"dfine": DFINE_SITES, "yolo": YOLO_SITES}
+# The int8 site shapes of the CLI's YOLOv5su, YOLOv9c and YOLO11n
+# (``predict-bscan --quant int8 --flavour v5|v9c|v11``: two classes, f32,
+# 640px) that the YOLOv8n-seg forward above lacks: v5su's 6x6 stem, v9c's
+# RepConvN branches and 159/79/39-pixel stride-2 inputs, v11n's C3k2 and
+# PSA convolutions (its attention's NCHW depthwise and 1x1 sites among
+# them), as ``chip_smoke.py`` phase 36 captured them (one image's strides,
+# the storage offset in channels, sites a forward). Not timed by ``times``;
+# the route each takes is checked on the CPU.
+YOLO_FLAVOUR_SITES = {
+    "v5": [
+        (3, 640, 640, (1228800, 1, 1920, 3), 0, (16, 3, 6, 6), 2, 1, 1),
+        (32, 160, 160, (819200, 1, 5120, 32), 0, (16, 32, 1, 1), 1, 1, 2),
+        (16, 160, 160, (409600, 1, 2560, 16), 0, (16, 16, 1, 1), 1, 1, 1),
+        (64, 80, 80, (409600, 1, 5120, 64), 0, (32, 64, 1, 1), 1, 1, 2),
+        (32, 80, 80, (204800, 1, 2560, 32), 0, (32, 32, 1, 1), 1, 1, 3),
+        (128, 40, 40, (204800, 1, 5120, 128), 0, (64, 128, 1, 1), 1, 1, 5),
+        (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 64, 1, 1), 1, 1, 5),
+        (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 128, 1, 1), 1, 1, 2),
+        (256, 40, 40, (409600, 1, 10240, 256), 0, (64, 256, 1, 1), 1, 1, 2),
+        (128, 80, 80, (819200, 1, 10240, 128), 0, (32, 128, 1, 1), 1, 1, 2)],
+    "v9c": [
+        (3, 640, 640, (1228800, 1, 1920, 3), 0, (64, 3, 3, 3), 2, 1, 1),
+        (64, 320, 320, (6553600, 1, 20480, 64), 0, (128, 64, 3, 3), 2, 1, 1),
+        (128, 160, 160, (3276800, 1, 20480, 128), 0, (128, 128, 1, 1), 1, 1, 1),
+        (32, 160, 160, (819200, 1, 5120, 32), 0, (32, 32, 3, 3), 1, 1, 4),
+        (64, 160, 160, (1638400, 1, 10240, 64), 0, (64, 64, 1, 1), 1, 1, 2),
+        (256, 160, 160, (6553600, 1, 40960, 256), 0, (256, 256, 1, 1), 1, 1, 1),
+        (128, 159, 159, (6471936, 1, 40704, 256), 0, (128, 128, 3, 3), 2, 1, 1),
+        (128, 80, 80, (819200, 1, 10240, 128), 0, (128, 128, 1, 1), 1, 1, 5),
+        (256, 80, 80, (1638400, 1, 20480, 256), 0, (256, 256, 1, 1), 1, 1, 1),
+        (128, 80, 80, (819200, 1, 10240, 128), 0, (128, 128, 3, 3), 1, 1, 4),
+        (512, 80, 80, (3276800, 1, 40960, 512), 0, (512, 512, 1, 1), 1, 1, 1),
+        (256, 79, 79, (3195392, 1, 40448, 512), 0, (256, 256, 3, 3), 2, 1, 1),
+        (256, 40, 40, (409600, 1, 10240, 256), 0, (256, 256, 1, 1), 1, 1, 7),
+        (512, 40, 40, (819200, 1, 20480, 512), 0, (512, 512, 1, 1), 1, 1, 1),
+        (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 128, 3, 3), 1, 1, 12),
+        (256, 40, 40, (409600, 1, 10240, 256), 0, (256, 256, 3, 3), 1, 1, 7),
+        (1024, 40, 40, (1638400, 1, 40960, 1024), 0, (512, 1024, 1, 1), 1, 1, 4),
+        (256, 39, 39, (778752, 1, 19968, 512), 0, (256, 256, 3, 3), 2, 1, 2),
+        (512, 20, 20, (204800, 1, 10240, 512), 0, (512, 512, 1, 1), 1, 1, 1),
+        (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 128, 1, 1), 1, 1, 4),
+        (256, 20, 20, (102400, 1, 5120, 256), 0, (256, 256, 3, 3), 1, 1, 5),
+        (1024, 20, 20, (409600, 1, 20480, 1024), 0, (512, 1024, 1, 1), 1, 1, 4),
+        (1024, 80, 80, (6553600, 1, 81920, 1024), 0, (256, 1024, 1, 1), 1, 1, 1),
+        (512, 80, 80, (3276800, 1, 40960, 512), 0, (256, 512, 1, 1), 1, 1, 1),
+        (128, 79, 79, (1597696, 1, 20224, 256), 0, (128, 128, 3, 3), 2, 1, 1),
+        (768, 40, 40, (1228800, 1, 30720, 768), 0, (512, 768, 1, 1), 1, 1, 1),
+        (256, 80, 80, (1638400, 1, 20480, 256), 0, (64, 256, 3, 3), 1, 1, 1),
+        (256, 80, 80, (1638400, 1, 20480, 256), 0, (256, 256, 3, 3), 1, 1, 2),
+        (512, 40, 40, (819200, 1, 20480, 512), 0, (64, 512, 3, 3), 1, 1, 1),
+        (512, 40, 40, (819200, 1, 20480, 512), 0, (256, 512, 3, 3), 1, 1, 1),
+        (512, 20, 20, (204800, 1, 10240, 512), 0, (64, 512, 3, 3), 1, 1, 1),
+        (512, 20, 20, (204800, 1, 10240, 512), 0, (256, 512, 3, 3), 1, 1, 1)],
+    "v11": [
+        (16, 160, 160, (819200, 1, 5120, 32), 16, (8, 16, 3, 3), 1, 1, 1),
+        (8, 160, 160, (204800, 1, 1280, 8), 0, (16, 8, 3, 3), 1, 1, 1),
+        (48, 160, 160, (1228800, 1, 7680, 48), 0, (64, 48, 1, 1), 1, 1, 1),
+        (64, 160, 160, (1638400, 1, 10240, 64), 0, (64, 64, 3, 3), 2, 1, 1),
+        (32, 80, 80, (409600, 1, 5120, 64), 32, (16, 32, 3, 3), 1, 1, 2),
+        (16, 80, 80, (102400, 1, 1280, 16), 0, (32, 16, 3, 3), 1, 1, 2),
+        (96, 80, 80, (614400, 1, 7680, 96), 0, (128, 96, 1, 1), 1, 1, 1),
+        (128, 80, 80, (819200, 1, 10240, 128), 0, (128, 128, 3, 3), 2, 1, 1),
+        (64, 40, 40, (204800, 1, 5120, 128), 64, (32, 64, 1, 1), 1, 1, 2),
+        (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 64, 1, 1), 1, 1, 2),
+        (128, 20, 20, (102400, 1, 5120, 256), 128, (64, 128, 1, 1), 1, 1, 4),
+        (128, 20, 20, (51200, 1, 2560, 128), 0, (128, 128, 1, 1), 1, 1, 2),
+        (128, 20, 20, (102400, 1, 5120, 256), 128, (256, 128, 1, 1), 1, 1, 1),
+        (128, 20, 20, (51200, 400, 20, 1), 0, (128, 1, 3, 3), 1, 128, 1),
+        (128, 20, 20, (51200, 400, 20, 1), 0, (128, 128, 1, 1), 1, 1, 1),
+        (128, 20, 20, (51200, 1, 2560, 128), 0, (256, 128, 1, 1), 1, 1, 1),
+        (64, 40, 40, (204800, 1, 5120, 128), 64, (32, 64, 3, 3), 1, 1, 2),
+        (32, 40, 40, (51200, 1, 1280, 32), 0, (64, 32, 3, 3), 1, 1, 2),
+        (256, 80, 80, (1638400, 1, 20480, 256), 0, (64, 256, 1, 1), 1, 1, 1),
+        (64, 80, 80, (409600, 1, 5120, 64), 0, (64, 1, 3, 3), 1, 64, 2),
+        (128, 40, 40, (204800, 1, 5120, 128), 0, (128, 1, 3, 3), 1, 128, 1),
+        (128, 40, 40, (204800, 1, 5120, 128), 0, (64, 128, 1, 1), 1, 1, 1),
+        (64, 40, 40, (102400, 1, 2560, 64), 0, (64, 1, 3, 3), 1, 64, 1),
+        (256, 20, 20, (102400, 1, 5120, 256), 0, (256, 1, 3, 3), 1, 256, 1),
+        (256, 20, 20, (102400, 1, 5120, 256), 0, (64, 256, 1, 1), 1, 1, 1),
+        (64, 20, 20, (25600, 1, 1280, 64), 0, (64, 1, 3, 3), 1, 64, 1),
+        (64, 20, 20, (25600, 1, 1280, 64), 0, (64, 64, 1, 1), 1, 1, 1)]}
+INT8_SITES = {"dfine": DFINE_SITES, "yolo": YOLO_SITES,
+              **{f"yolo_{k}": v for k, v in YOLO_FLAVOUR_SITES.items()}}
 INT8_PATHS = (("dfine", 128, "bfloat16"), ("yolo", 32, "float32"))
 # the heaviest site shapes, by index, timed on their own
 INT8_HEAVY = {"dfine": {"3x3_64_40": 16, "1x1_448_128": 7,

@@ -12,5 +12,6 @@ each kernel wrapper runs its plain PyTorch version.
 """
 
 from pautdx_torch.device import resolve_device
+from pautdx_torch.version import __version__
 
-__all__ = ["resolve_device"]
+__all__ = ["__version__", "resolve_device"]

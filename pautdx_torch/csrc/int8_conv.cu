@@ -7,7 +7,8 @@
 // for input x (N, C, H, W) (f32 or bf16, any strides), a symmetric
 // per-tensor input scale s and int8 OIHW weights q with per-output-channel
 // scales,
-//   xq  = clip(rint(__fdiv_rn(x, s)), -127, 127)    (IEEE f32 division)
+//   xq  = clip(rint(__fdiv_rn(x, s)), -127, 127)    (IEEE f32 division;
+//                                                    NaN gives 0)
 //   acc = conv(xq, q)                                (exact int32)
 //   out = __fmul_rn(__int2float_rn(acc), out_scale[o])
 // rounded once to the output dtype (f32 or bf16), or acc itself in the
@@ -110,12 +111,14 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
 // s / 2 (s normal, so that s / 2 is exact) the quotient rounds to at most
 // 0.5 in magnitude and rint gives 0: such values, zeros above all, are
 // divided as s / s instead and give 0, since __fdiv_rn's range check
-// sends zero and subnormal dividends down its slow path. The result is
-// clipped before the rounding conversion: +-127 are integers, so this is
-// clip(rint(v / s)) (NaN gives -127 either way).
+// sends zero and subnormal dividends down its slow path. NaN fails every
+// comparison, so the test is written !(|v| >= s / 2): NaN takes the same
+// branch and gives 0, as the reference's int8 cast of a NaN does; +-inf
+// give +-127. The result is clipped before the rounding conversion:
+// +-127 are integers, so this is clip(rint(v / s)).
 __device__ __forceinline__ int quantize(float v, float s) {
   const float half = s >= 2.3509887e-38f ? 0.5f * s : 0.0f;
-  const bool small = fabsf(v) < half;
+  const bool small = !(fabsf(v) >= half);
   const float q = __fdiv_rn(small ? s : v, s);
   return small ? 0
                : __float2int_rn(fminf(fmaxf(q, -127.0f), 127.0f));

@@ -93,17 +93,25 @@ def adjust_annotations(ann: Dict[str, list], n_beams: int,
     return out
 
 
+def render_volume(vol: ParsedVolume, out_h: int = 320, out_w: int = 320,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, list]]:
+    """ParsedVolume -> (T, H, W) frames rendered on ``device`` and left
+    there, and the pixel annotations."""
+    frames = np.swapaxes(vol.beam_array(), 0, 1)  # (scans, beams, samples)
+    imgs = render_bscans(frames, out_h, out_w, device=device)
+    ann = adjust_annotations(volume_defect_boxes(vol), vol.n_beams,
+                             (out_w, out_h))
+    return imgs, ann
+
+
 def render_volume_dataset(vol: ParsedVolume, out_h: int = 320,
                           out_w: int = 320,
                           device: Optional[Union[str, torch.device]] = None
                           ) -> Tuple[np.ndarray, Dict[str, list]]:
-    """ParsedVolume -> (T, H, W) frames rendered on ``device``, returned as
-    a host array, and the pixel annotations."""
-    frames = np.swapaxes(vol.beam_array(), 0, 1)  # (scans, beams, samples)
-    imgs = render_bscans(frames, out_h, out_w, device=device).cpu().numpy()
-    ann = adjust_annotations(volume_defect_boxes(vol), vol.n_beams,
-                             (out_w, out_h))
-    return imgs, ann
+    """:func:`render_volume` with the frames returned as a host array."""
+    imgs, ann = render_volume(vol, out_h, out_w, device)
+    return imgs.cpu().numpy(), ann
 
 
 def bbox_xyxy_from_schema(bbox: List[float]

@@ -1,8 +1,8 @@
 """Seeded synthetic PAUT data generators — the framework's test fixtures.
 
 The port's own copy of ``pautdx/data/synthetic.py``: the same numpy draws
-from the same seed, so the volumes are identical bit for bit
-(``synth_dscan`` is not carried over).
+from the same seed, so the volumes (and ``synth_dscan``'s D-scans) are
+identical bit for bit.
 
 The reference ships two synthetic generators used only for visualisation
 (`signals/improved_multisignal/visualization/paut_data_generator.py:6-193`,
@@ -201,3 +201,28 @@ def write_txt_tree(root: str, spec: Optional[VolumeSpec] = None,
             np.savetxt(os.path.join(beam_dir, name), vol[b, s])
     return defects
 
+
+def synth_dscan(n_scans: int = 200, n_samples: int = 320, n_bands: int = 2,
+                n_defects: int = 3, seed: int = 0) -> Tuple[np.ndarray, list]:
+    """Parametric D-scan image (scans x samples) with horizontal bands,
+    defect blobs, and speckle — analogue of `autogates_func.py:6-84`.
+
+    Returns (image, defect interval list in sample units).
+    """
+    rng = np.random.default_rng(seed)
+    img = np.zeros((n_scans, n_samples), np.float32)
+    t = np.linspace(0.0, 1.0, n_samples, dtype=np.float32)
+    for i in range(n_bands):
+        pos = 0.12 + 0.75 * i / max(1, n_bands - 1)
+        img += np.exp(-0.5 * ((t - pos) / 0.02) ** 2)[None, :] * (1.0 - 0.3 * i)
+    intervals = []
+    for _ in range(n_defects):
+        s0 = int(rng.integers(0, n_scans - 20))
+        s1 = s0 + int(rng.integers(8, 20))
+        c = float(rng.uniform(0.25, 0.7))
+        w = float(rng.uniform(0.015, 0.04))
+        blob = np.exp(-0.5 * ((t - c) / w) ** 2)[None, :]
+        img[s0:s1] += 0.8 * blob
+        intervals.append((s0, s1, int((c - 2 * w) * n_samples), int((c + 2 * w) * n_samples)))
+    img += 0.05 * rng.standard_normal(img.shape).astype(np.float32)
+    return img, intervals

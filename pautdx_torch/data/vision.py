@@ -31,6 +31,20 @@ class DetectionFrames:
     def __len__(self) -> int:
         return self.images.shape[0]
 
+    @property
+    def image_size(self) -> Tuple[int, int]:
+        return self.images.shape[1], self.images.shape[2]
+
+    def normalized_cxcywh(self) -> np.ndarray:
+        """(T, M, 4) cxcywh normalized: the DETR box parameterization."""
+        H, W = self.image_size
+        b = self.boxes
+        cx = (b[..., 0] + b[..., 2]) / 2 / W
+        cy = (b[..., 1] + b[..., 3]) / 2 / H
+        w = (b[..., 2] - b[..., 0]) / W
+        h = (b[..., 3] - b[..., 1]) / H
+        return np.stack([cx, cy, w, h], -1).astype(np.float32)
+
 
 def detection_frames_from_volume(
         vol: ParsedVolume, out_size: int = 320, max_boxes: int = 8,

@@ -42,6 +42,10 @@ class ParsedVolume:
         """Stack beams -> (beams, scans, samples); requires rectangular volume."""
         return np.stack([self.signals[k] for k in self.beam_keys])
 
+    def scan_image(self, scan_idx: int) -> np.ndarray:
+        """B-scan image for one scan position: (beams, samples)."""
+        return np.stack([self.signals[k][scan_idx] for k in self.beam_keys])
+
 
 def parse_json_volume(path_or_dict, use_native: bool = True
                       ) -> ParsedVolume:

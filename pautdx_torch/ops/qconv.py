@@ -209,10 +209,12 @@ def int8_accumulators_reference(x: torch.Tensor, prep: Int8Weight,
                                 ) -> torch.Tensor:
     """The exact int32 accumulators: the input quantized (the division by a
     tensor on the input's device, so that no backend replaces it by a
-    product with the reciprocal) and convolved in float64 with cuDNN off
-    (no Winograd or FFT)."""
+    product with the reciprocal; NaN to 0 and +-inf to +-127, as the
+    reference's int8 cast gives them) and convolved in float64 with cuDNN
+    off (no Winograd or FFT)."""
     s = prep.in_scale.to(x.device)
     xq = torch.clamp(torch.round(x.float() / s), -127.0, 127.0)
+    xq = torch.where(torch.isnan(xq), torch.zeros_like(xq), xq)
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv2d(xq.double(), prep.q.to(x.device, torch.float64),
                        stride=_pair(stride, "stride"),

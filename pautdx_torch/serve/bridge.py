@@ -6,7 +6,9 @@ Counterpart of ``pautdx/serve/bridge.py``, with the same wire protocol:
   ``[[{box, label, score}, ...], ...]``, one list per frame, to stdout;
 - ``serve_signals``: read ``{"signals": [N][S]}`` (or ``[B][N][S]``),
   run a ``SignalEndpoint``, write ``{"prob": [[...]], "pred": [[...]]}``
-  (and ``"positions"``), batch first.
+  (and ``"positions"``), batch first, one line; and so on for every
+  further request on stdin, from the same endpoint (the reference answers
+  one request a process).
 
     python -c "from pautdx_torch.serve.bridge import serve_frames; \\
         from pautdx_torch.serve.temporal_predict import *; \\
@@ -41,12 +43,35 @@ def serve_frames(predict_sequence: Callable, stdin=None, stdout=None
     stdout.flush()
 
 
-def serve_signals(endpoint, stdin=None, stdout=None) -> None:
-    """One-shot signal bridge: {"signals": [N][S]} -> the endpoint's
-    per-signal outputs as nested lists."""
+def _answer(endpoint, request: dict) -> dict:
+    signals = np.asarray(request["signals"], np.float32)
+    out = endpoint.predict(signals[None] if signals.ndim == 2 else signals)
+    return {k: v.tolist() for k, v in out.items()}
+
+
+def serve_signals(endpoint, stdin=None, stdout=None) -> int:
+    """Signal bridge: each JSON request on stdin, {"signals": [N][S]} (one
+    after another, any whitespace between; a request may span lines), is
+    answered as soon as it is complete with the endpoint's per-signal
+    outputs as nested lists, one line of JSON an answer, until stdin ends.
+    Returns the number of requests answered; text after the last complete
+    request raises ``ValueError``."""
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
-    signals = np.asarray(json.load(stdin)["signals"], np.float32)
-    out = endpoint.predict(signals[None] if signals.ndim == 2 else signals)
-    json.dump({k: v.tolist() for k, v in out.items()}, stdout)
-    stdout.flush()
+    decoder = json.JSONDecoder()
+    buf, n = "", 0
+    for line in stdin:
+        buf += line
+        while buf.strip():
+            try:
+                request, end = decoder.raw_decode(buf.lstrip())
+            except json.JSONDecodeError:
+                break                      # the request is not complete yet
+            buf = buf.lstrip()[end:]
+            stdout.write(json.dumps(_answer(endpoint, request)) + "\n")
+            stdout.flush()
+            n += 1
+    if buf.strip():
+        raise ValueError(f"serve_signals: stdin ends inside a request "
+                         f"({len(buf.strip())} characters)")
+    return n

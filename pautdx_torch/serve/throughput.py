@@ -57,12 +57,14 @@ def cast_params_bf16(module: nn.Module) -> nn.Module:
     return module
 
 
-def prepatchify_uint8(frames, patch: int) -> np.ndarray:
-    """Host-side space-to-depth on the uint8 wire bytes:
-    (..., H, W, C) -> (..., H/p, W/p, p*p*C), flattened in (ki, kj, c)
-    order, which a ``stem_pre_patchified`` model consumes with the same
-    weights. Leading axes (steps, batch) pass through."""
-    x = np.asarray(frames)
+def prepatchify_uint8(frames, patch: int):
+    """Space-to-depth on the wire bytes: (..., H, W, C) -> (..., H/p, W/p,
+    p*p*C), flattened in (ki, kj, c) order, which a ``stem_pre_patchified``
+    model consumes with the same weights. Leading axes (steps, batch) pass
+    through. A numpy array (the host wire format) gives a numpy array; a
+    tensor, of any dtype, a contiguous tensor on its own device."""
+    is_tensor = isinstance(frames, torch.Tensor)
+    x = frames if is_tensor else np.asarray(frames)
     *lead, H, W, C = x.shape
     if H % patch or W % patch:
         raise ValueError(f"H/W must be divisible by patch={patch}, "
@@ -70,9 +72,10 @@ def prepatchify_uint8(frames, patch: int) -> np.ndarray:
     x = x.reshape(*lead, H // patch, patch, W // patch, patch, C)
     nd = x.ndim
     # (..., Hp, ki, Wp, kj, c) -> (..., Hp, Wp, ki, kj, c)
-    x = x.transpose(*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
-    return np.ascontiguousarray(x).reshape(
-        *lead, H // patch, W // patch, patch * patch * C)
+    order = (*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
+    x = x.permute(*order) if is_tensor else np.ascontiguousarray(
+        x.transpose(*order))
+    return x.reshape(*lead, H // patch, W // patch, patch * patch * C)
 
 
 def make_uint8_slab(shape: Tuple[int, ...], seed: int = 0,

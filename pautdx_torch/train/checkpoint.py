@@ -87,6 +87,12 @@ class CheckpointManager:
         metadata["step"] = step
         return state, metadata
 
+    def restore_best_or_latest(self) -> Tuple[Dict[str, Any], Dict]:
+        """(state, metadata) of the ``"best"`` step where one was marked,
+        else of the ``"latest"``."""
+        return self.restore("best" if "best" in self._markers()
+                            else "latest")
+
     def load_history(self) -> Dict:
         p = os.path.join(self.directory, "history.json")
         if os.path.exists(p):

@@ -5,8 +5,8 @@ Counterpart of ``pautdx/cli.py:168-247`` (``train-bscan``, both
 PAUT volumes (``.json`` files and txt-tree folders), renders them to B-scan
 frames on the card, batches them on a host thread and trains D-FINE-nano
 or a YOLO (``YoloConfig(num_classes, scale, flavour)``, the CLI's) through
-the ``Trainer`` with per-epoch checkpoints. The ``train-bscan`` subcommand
-itself waits for the CLI (ROADMAP.md, queue 1, item 15). Batches follow
+the ``Trainer`` with per-epoch checkpoints; ``python -m pautdx_torch.cli
+train-bscan`` runs it. Batches follow
 the ``data/vision.py::batch_frames`` schema:
 
 - ``images``: (B, S, S, 3) float32 frames in [0, 1];
@@ -140,11 +140,12 @@ SCALE = "n"
 FLAVOUR = "v8"
 
 
-def dfine_metadata(cfg: DFineConfig, size: int) -> Dict:
+def dfine_metadata(cfg: DFineConfig, size: int, scale: str = SCALE,
+                   flavour: str = FLAVOUR) -> Dict:
     """The checkpoint metadata of ``cli.py:239-244`` for a D-FINE run (with
-    the CLI's ``--scale``/``--flavour`` defaults, which D-FINE ignores)."""
+    the CLI's ``--scale``/``--flavour``, which D-FINE ignores)."""
     return {"detector": "dfine", "num_classes": cfg.num_labels,
-            "size": size, "scale": SCALE, "flavour": FLAVOUR,
+            "size": size, "scale": scale, "flavour": flavour,
             "dfine_config": config_to_dict(cfg)}
 
 
@@ -207,6 +208,7 @@ def train_bscan_detector(data_dir: str, size: int = 640,
                          augment: bool = False, out: Optional[str] = None,
                          detector: str = "dfine", scale: str = SCALE,
                          flavour: str = FLAVOUR, seg: bool = False,
+                         num_classes: int = NUM_CLASSES,
                          ema_decay: Optional[float] = None,
                          num_denoising: int = 0,
                          device: Optional[Union[str, torch.device]] = None,
@@ -219,11 +221,11 @@ def train_bscan_detector(data_dir: str, size: int = 640,
     with seeded weights; with ``out``, a checkpoint with the run's metadata
     after every epoch. ``ema_decay`` keeps the EMA of the parameters.
 
-    ``detector="dfine"``: ``DFine(dfine_nano(NUM_CLASSES))``;
+    ``detector="dfine"``: ``DFine(dfine_nano(num_classes))``;
     ``num_denoising`` > 0 adds contrastive denoising groups of that many
     queries (rounded to whole groups of 2 * ``max_boxes``), drawn from a
     generator seeded with 0. ``detector="yolo"``:
-    ``YOLO(YoloConfig(NUM_CLASSES, scale, flavour))`` under ``yolo_loss``;
+    ``YOLO(YoloConfig(num_classes, scale, flavour))`` under ``yolo_loss``;
     ``seg`` trains the seg model on box masks (:func:`add_box_masks`), a
     run the CLI has no flag for. Returns the trainer and its state."""
     if detector not in ("dfine", "yolo"):
@@ -263,14 +265,14 @@ def train_bscan_detector(data_dir: str, size: int = 640,
 
     forward = None
     if detector == "yolo":
-        cfg = YoloConfig(num_classes=NUM_CLASSES, scale=scale,
+        cfg = YoloConfig(num_classes=num_classes, scale=scale,
                          flavour=flavour, seg=seg)
         model, objective = YOLO(cfg, device=dev), yolo_objective(size, cfg)
         metadata = yolo_metadata(cfg, size)
     else:
-        cfg = dfine_nano(num_labels=NUM_CLASSES)
+        cfg = dfine_nano(num_labels=num_classes)
         model, objective = DFine(cfg, device=dev), dfine_objective(size, cfg)
-        metadata = dfine_metadata(cfg, size)
+        metadata = dfine_metadata(cfg, size, scale, flavour)
         if num_denoising > 0:
             gen = torch.Generator(device=dev).manual_seed(0)
             forward = denoising_forward(size, cfg, num_denoising, gen)

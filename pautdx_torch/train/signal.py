@@ -19,8 +19,9 @@ cosine decay that they declare (ROADMAP.md, queue 3). Here
 
 The checkpoint's metadata adds ``signal_length`` to the reference's
 ``model``, ``recipe`` and ``seq_len``: the models that read raw samples
-need it to be rebuilt. The training history plot waits for the port's
-``viz`` (ROADMAP.md, queue 1, item 17).
+need it to be rebuilt. The ``train-signal`` subcommand (``cli.py``) draws
+the training history with ``viz.plot_training_history``, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
                  recipe: str = "detection", epochs: Optional[int] = None,
                  batch_size: Optional[int] = None,
                  seq_len: Optional[int] = None,
-                 defect_focused: bool = False, signal_length: int = 320,
+                 defect_focused: bool = False,
+                 signal_length: Optional[int] = 320,
                  seed: int = 0, dp: bool = False, device: Device = None,
                  log: Callable[[str], None] = print
                  ) -> Tuple[Trainer, TrainState]:
@@ -67,8 +69,9 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
     volumes of ``data_dir``, checkpoints under ``out``, on ``device``
     (default ``"cuda"``). ``epochs``, ``batch_size`` and ``seq_len``
     default to the recipe's; ``seed`` draws the initial weights and the
-    dropout masks. Returns the trainer (its ``history``) and the trained
-    state."""
+    dropout masks. ``signal_length`` must be the volumes' samples a
+    signal; None takes it from the volumes. Returns the trainer (its
+    ``history``) and the trained state."""
     if dp:
         raise NotImplementedError(
             "train_signal(dp=True): data-parallel training is not ported "
@@ -79,6 +82,8 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
     ds = load_json_dir(data_dir, seq_len=seq_len)
     if defect_focused:
         ds = focus_defects(ds)
+    if signal_length is None:
+        signal_length = ds.signals.shape[-1] if len(ds) else 320
     if len(ds) and ds.signals.shape[-1] != signal_length:
         raise ValueError(f"train_signal: the volumes in {data_dir} have "
                          f"{ds.signals.shape[-1]} samples a signal, "
@@ -118,9 +123,7 @@ def restore_signal_model(ckpt_dir: str, device: Device = None
     metadata's ``model`` and ``signal_length`` in eval mode on ``device``
     (default ``"cuda"``)."""
     dev = resolve_device(device)
-    ckpt = CheckpointManager(ckpt_dir)
-    state, meta = ckpt.restore("best" if "best" in ckpt._markers()
-                               else "latest")
+    state, meta = CheckpointManager(ckpt_dir).restore_best_or_latest()
     model = build_signal_model(meta["model"],
                                signal_length=meta.get("signal_length", 320),
                                device=dev)

@@ -23,6 +23,12 @@ its config (``train/checkpoint.restore_dfine``).
   final logits and boxes alone, plus 0.1 x the anomaly consistency for v3.
 - :func:`train_temporal`: one sequence a step, drawn by
   ``default_rng(3)``, through the ``Trainer``'s guarded step.
+
+``train-temporal`` (``pautdx/cli.py:560-736``) trains with its own recipe,
+kept here beside the harness's: :func:`cli_temporal_model` builds its model
+(the trunk's checkpoint config, the ``--tiny`` config or D-FINE-nano),
+:func:`cli_temporal_optimizer` its groups and constant rates, and
+:func:`train_temporal_epochs` walks every sequence once an epoch, in order.
 """
 
 from __future__ import annotations
@@ -40,11 +46,15 @@ from pautdx_torch.data.vision import (DetectionFrames,
 from pautdx_torch.data.volume import parse_json_volume
 from pautdx_torch.device import resolve_device
 from pautdx_torch.losses.detr import dfine_criterion
+from pautdx_torch.models.vision.dfine import (DFineConfig, config_from_dict,
+                                              dfine_nano)
+from pautdx_torch.models.vision.hgnet import HGNetConfig
 from pautdx_torch.models.vision.temporal_dfine import (
     TemporalDFine, init_heads_from_trunk, temporal_consistency_loss,
     trainable_mask,
 )
-from pautdx_torch.train.checkpoint import restore_dfine
+from pautdx_torch.train.checkpoint import (CheckpointManager,
+                                           load_model_state, restore_dfine)
 from pautdx_torch.train.detector import MAX_BOXES, normalized_boxes
 from pautdx_torch.train.optim import (ClippedAdamW, cosine_schedule,
                                       make_optimizer)
@@ -59,6 +69,16 @@ CONSISTENCY_WEIGHT = 0.1
 PEAKS = {"v1": {"temporal": 2e-4},
          "v2": {"temporal": 5e-4, "classifier": 1e-3},
          "v3": {"trunk": 1e-5, "temporal": 5e-4, "classifier": 1e-4}}
+
+# ``train-temporal``'s groups (``pautdx/cli.py:655-671``): these modules
+# train as ``temporal``, the class head as ``classifier``, every other
+# trainable parameter (the box head among them) as ``trunk``
+CLI_TEMPORAL_TOPS = ("temporal_encoder", "temporal_attention",
+                     "anomaly_detector", "context_aggregator",
+                     "context_projector")
+# its constant rates for v3's AdamW (decay 0.01); v1 and v2 train every
+# group with Adam at ``--lr`` (``pautdx/cli.py:673-684``)
+CLI_V3_LRS = {"trunk": 1e-5, "temporal": 5e-4, "classifier": 1e-4}
 
 
 def make_temporal_dataset(seeds: Sequence[int], n_scans: int = 60,
@@ -115,23 +135,40 @@ def stack_chunks(chunks: Sequence[DetectionFrames],
     return out
 
 
-def temporal_labels(model: TemporalDFine, variant: str) -> Dict[str, str]:
-    """Each parameter's optimizer group by name (``bench_accuracy.py:
-    580-597``): ``frozen`` outside ``trainable_mask``, else ``trunk``,
-    ``classifier`` (the class head) or ``temporal``."""
+def temporal_labels(model: TemporalDFine, variant: str,
+                    temporal_tops: Optional[Sequence[str]] = None
+                    ) -> Dict[str, str]:
+    """Each parameter's optimizer group by name: ``frozen`` outside
+    ``trainable_mask``, ``classifier`` the class head, else the harness's
+    split (``bench_accuracy.py:580-597``: ``trunk`` under the trunk,
+    ``temporal`` the rest) or, given ``temporal_tops``, ``temporal`` under
+    those modules and ``trunk`` the rest (:data:`CLI_TEMPORAL_TOPS`)."""
     mask = trainable_mask(variant, model)
 
     def group(name: str) -> str:
         if not mask[name]:
             return "frozen"
         top = name.split(".", 1)[0]
-        if top == "trunk":
-            return "trunk"
         if top == "class_head":
             return "classifier"
-        return "temporal"
+        if temporal_tops is None:
+            return "trunk" if top == "trunk" else "temporal"
+        return "temporal" if top in temporal_tops else "trunk"
 
     return {name: group(name) for name in mask}
+
+
+def _freeze(model: TemporalDFine, labels: Dict[str, str]) -> List[str]:
+    """``requires_grad_(False)`` on the frozen parameters; the other
+    groups, in name order."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    return sorted({g for g in labels.values() if g != "frozen"})
+
+
+def _patterns(labels: Dict[str, str], groups: Sequence[str]
+              ) -> Dict[str, List[str]]:
+    return {g: [n for n, lab in labels.items() if lab == g] for g in groups}
 
 
 def temporal_optimizer(model: TemporalDFine, variant: str,
@@ -142,15 +179,28 @@ def temporal_optimizer(model: TemporalDFine, variant: str,
     max(5, steps // 10), 1 / 50)`` (optax's ``warmup_cosine_decay_schedule(
     0, peak, ..., peak / 50)``, scaled)."""
     labels = temporal_labels(model, variant)
-    for name, p in model.named_parameters():
-        p.requires_grad_(labels[name] != "frozen")
+    _freeze(model, labels)
     peaks = PEAKS[variant]
     spec = make_optimizer(
         1.0, weight_decay=0.01, clip_norm=1.0,
         schedule=cosine_schedule(1.0, steps, max(5, steps // 10), 1 / 50),
-        group_lr_mults=peaks,
-        group_patterns={g: [n for n, lab in labels.items() if lab == g]
-                        for g in peaks})
+        group_lr_mults=peaks, group_patterns=_patterns(labels, peaks))
+    return spec.init(model)
+
+
+def cli_temporal_optimizer(model: TemporalDFine, variant: str,
+                           lr: float) -> ClippedAdamW:
+    """``train-temporal``'s optimizer: the groups of
+    :data:`CLI_TEMPORAL_TOPS`, the frozen ones out of the optimizer and the
+    clip (1.0); v3 AdamW at :data:`CLI_V3_LRS` with decay 0.01, v1 and v2
+    Adam at ``lr``; constant rates."""
+    labels = temporal_labels(model, variant, CLI_TEMPORAL_TOPS)
+    groups = _freeze(model, labels)
+    lrs = CLI_V3_LRS if variant == "v3" else dict.fromkeys(groups, lr)
+    spec = make_optimizer(
+        1.0, weight_decay=0.01 if variant == "v3" else 0.0, clip_norm=1.0,
+        group_lr_mults={g: lrs[g] for g in groups},
+        group_patterns=_patterns(labels, groups))
     return spec.init(model)
 
 
@@ -177,6 +227,17 @@ def temporal_objective(model: TemporalDFine, variant: str) -> Callable:
     return objective
 
 
+def temporal_trainer(model: TemporalDFine, variant: str,
+                     optimizer: ClippedAdamW) -> Tuple[Trainer, TrainState]:
+    """``model`` in train mode, the recipe's objective and ``optimizer``
+    in a ``Trainer``, and its fresh state."""
+    model.train()
+    trainer = Trainer(model, temporal_objective(model, variant),
+                      optimizer.spec, input_key="images",
+                      forward=lambda m, batch: m(batch["images"]))
+    return trainer, TrainState(step=0, model=model, optimizer=optimizer)
+
+
 def build_temporal_trainer(variant: str, trunk: str, steps: int,
                            device: Optional[Union[str, torch.device]] = None,
                            seed: int = 0) -> Tuple[Trainer, TrainState]:
@@ -194,13 +255,8 @@ def build_temporal_trainer(variant: str, trunk: str, steps: int,
                           device=dev, seed=seed)
     model.trunk.load_state_dict(restored.state_dict())
     init_heads_from_trunk(model)
-    model.train()
-    optimizer = temporal_optimizer(model, variant, steps)
-    trainer = Trainer(model, temporal_objective(model, variant),
-                      optimizer.spec, input_key="images",
-                      forward=lambda m, batch: m(batch["images"]))
-    state = TrainState(step=0, model=model, optimizer=optimizer)
-    return trainer, state
+    return temporal_trainer(model, variant,
+                            temporal_optimizer(model, variant, steps))
 
 
 def train_temporal(variant: str, trunk: str,
@@ -226,3 +282,78 @@ def train_temporal(variant: str, trunk: str,
         if i % log_every == 0 or i == steps - 1:
             log(f"    [{variant}] step {i:4d} loss {row['total']:8.3f}")
     return trainer, state, rows
+
+
+def tiny_temporal_config(num_classes: int) -> DFineConfig:
+    """``train-temporal --tiny``'s D-FINE (tests and smoke runs)."""
+    return DFineConfig(
+        num_labels=num_classes, d_model=64, encoder_hidden_dim=64,
+        decoder_layers=2, decoder_attention_heads=4,
+        encoder_attention_heads=4, decoder_ffn_dim=128,
+        encoder_ffn_dim=128, num_queries=20, max_num_bins=16,
+        hidden_expansion=0.5,
+        backbone=HGNetConfig(
+            stem_channels=(3, 8, 8), stage_in_channels=(8, 16, 32, 64),
+            stage_mid_channels=(8, 8, 16, 32),
+            stage_out_channels=(16, 32, 64, 128),
+            stage_num_blocks=(1, 1, 1, 1), stage_num_layers=(1, 1, 2, 2)))
+
+
+def cli_temporal_model(variant: str, num_classes: int, defect_classes: int,
+                       temporal_layers: int, trunk: Optional[str] = None,
+                       tiny: bool = False,
+                       device: Optional[Union[str, torch.device]] = None,
+                       log: Callable[[str], None] = print) -> TemporalDFine:
+    """``train-temporal``'s model: the trunk's config from the checkpoint in
+    directory ``trunk`` where its metadata has one, else
+    :func:`tiny_temporal_config` with ``tiny``, else D-FINE-nano; v2/v3
+    re-classify into ``defect_classes`` + 1 no-object column, v1 keeps the
+    trunk's labels. The trunk's weights are loaded (without ``trunk`` it
+    stays at its seeded init, with a warning), then
+    ``init_heads_from_trunk``."""
+    dev = resolve_device(device)
+    trunk_state, trunk_meta = None, {}
+    if trunk:
+        trunk_state, trunk_meta = CheckpointManager(trunk).restore("latest")
+    if trunk_meta.get("dfine_config"):
+        cfg = config_from_dict(trunk_meta["dfine_config"])
+    elif tiny:
+        cfg = tiny_temporal_config(num_classes)
+    else:
+        cfg = dfine_nano(num_labels=num_classes)
+    model = TemporalDFine(
+        cfg, variant=variant,
+        num_temporal_labels=None if variant == "v1" else defect_classes + 1,
+        num_temporal_layers=temporal_layers,
+        temporal_heads=4 if tiny else 8, device=dev)
+    if trunk_state is not None:
+        load_model_state(model.trunk, trunk_state)
+    else:
+        log("warning: no --trunk checkpoint given — the frozen trunk "
+            "stays randomly initialized; the temporal encoder would "
+            "train on noise features (smoke runs only)")
+    init_heads_from_trunk(model)
+    return model
+
+
+def train_temporal_epochs(model: TemporalDFine, variant: str,
+                          chunks: Sequence[DetectionFrames], epochs: int,
+                          lr: float,
+                          on_epoch: Callable[[int, TrainState, List[float]],
+                                             None],
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> Tuple[Trainer, TrainState]:
+    """``train-temporal``'s loop: :func:`cli_temporal_optimizer`, the
+    sequences held on ``device`` (:func:`stack_chunks`), each trained on
+    once an epoch in order; ``on_epoch(epoch, state, losses)`` after each
+    epoch with its steps' total losses."""
+    dev = resolve_device(device)
+    trainer, state = temporal_trainer(
+        model, variant, cli_temporal_optimizer(model, variant, lr))
+    data = stack_chunks(chunks, dev)
+    for epoch in range(epochs):
+        losses = [trainer.train_step(state, {k: v[i]
+                                             for k, v in data.items()})
+                  ["total"] for i in range(len(chunks))]
+        on_epoch(epoch, state, losses)
+    return trainer, state

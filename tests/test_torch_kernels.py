@@ -646,7 +646,9 @@ def test_yolo_flavour_postprocess_matches_plain(cuda, name, monkeypatch):
 # streamed by chunk (128 -> 256, too big to stay in shared memory), a
 # slice 8 channels in (16-byte aligned), ragged spatial tiles (17 x 19),
 # depthwise with C not a multiple of 64; inputs with zeros, subnormals and
-# values at +-s/2 (the quantizer's shortcut to 0) and at +-1.5 s (ties)
+# values at +-s/2 (the quantizer's shortcut to 0) and at +-1.5 s (ties);
+# inputs with NaN (quantized to 0) and +-inf (to +-127) on each route:
+# wgmma, dp4a, and the generic kernel through a 3-channel input
 INT8_CASES = [
     (2, 64, 40, 40, 64, 1, 1, 1, "cl"), (2, 64, 20, 20, 64, 3, 1, 1, "cl"),
     (2, 64, 40, 40, 128, 3, 2, 1, "cl"), (2, 320, 17, 19, 128, 1, 1, 1, "cl"),
@@ -667,7 +669,10 @@ INT8_CASES = [
                                                "cl"),
     (2, 64, 20, 20, 64, 3, 1, 1, "edge"), (2, 96, 24, 24, 128, 1, 1, 1,
                                            "edge"),
-    (2, 64, 21, 21, 64, 5, 1, 64, "edge")]
+    (2, 64, 21, 21, 64, 5, 1, 64, "edge"),
+    (2, 64, 20, 20, 64, 3, 1, 1, "nonfinite"), (2, 64, 21, 21, 64, 5, 1, 64,
+                                                "nonfinite"),
+    (2, 3, 64, 64, 16, 3, 2, 1, "nonfinite")]
 
 
 def _int8_inputs(case, dtype, device, seed):
@@ -691,6 +696,10 @@ def _int8_inputs(case, dtype, device, seed):
         x[:, 2::5, 2::6] = -s / 2
         x[:, 3::5, 2::6] = 1.5 * s
         x[:, 4::5, 5::6] = torch.finfo(dtype).tiny / 4
+    elif layout == "nonfinite":
+        x[:, ::3, ::4, 1::5] = float("nan")
+        x[:, 1::3, 2::4, ::7] = float("inf")
+        x[:, 2::3, 1::5, 3::6] = -float("inf")
     return x, qconv.prepare_int8_weight(w, s, g), w, st, (k - 1) // 2, g
 
 
@@ -742,22 +751,32 @@ def _kernel_ab():
 
 
 @pytest.mark.parametrize("path,batch,elt", [("dfine", 128, 2),
-                                            ("yolo", 32, 4)])
+                                            ("yolo", 32, 4),
+                                            ("yolo_v5", 60, 4),
+                                            ("yolo_v9c", 60, 4),
+                                            ("yolo_v11", 60, 4)])
 def test_int8_route_at_every_serving_site(path, batch, elt):
     """Pure Python, no card: every site of the two serving forwards but
     YOLO's 3-channel stem takes a TMA route (wgmma dense, dp4a
     depthwise); the stem, whose channels-last rows are 12 bytes, the
-    generic kernel. A base 256 bytes into an allocation stands for the
-    allocator's alignment."""
+    generic kernel. The CLI's other YOLO flavours (their sites that
+    YOLOv8n-seg lacks): the 3-channel stems and YOLO11n's NCHW attention
+    sites generic, the rest on a TMA route. A base 256 bytes into an
+    allocation stands for the allocator's alignment."""
     sites = _kernel_ab().INT8_SITES[path]
-    assert sum(site[-1] for site in sites) == {"dfine": 69, "yolo": 66}[path]
+    assert sum(site[-1] for site in sites) == {
+        "dfine": 69, "yolo": 66, "yolo_v5": 25, "yolo_v9c": 81,
+        "yolo_v11": 38}[path]
     routes = []
     for C, H, W, strides, offset, wshape, st, g, _ in sites:
         routes.append(qconv.int8_route((batch, C, H, W), strides, elt,
                                        256 + offset * elt, wshape, st, g))
-        want = ("generic" if C == 3 else "dp4a" if g > 1 else "wgmma")
+        want = ("generic" if C == 3 or strides[1] != 1
+                else "dp4a" if g > 1 else "wgmma")
         assert routes[-1] == want, (C, H, W, wshape, st, g)
-    assert routes.count("generic") == (path == "yolo")
+    assert routes.count("generic") == {
+        "dfine": 0, "yolo": 1, "yolo_v5": 1, "yolo_v9c": 1,
+        "yolo_v11": 2}[path]
 
 
 def test_kernel_ab_phase_anchors_match_the_kernel_source():

@@ -13,13 +13,32 @@ from pautdx_torch.data import synthetic
 from pautdx_torch.data.volume import parse_json_volume, parse_txt_tree
 
 
+@pytest.fixture(scope="module")
+def reference_reader(tmp_path_factory):
+    """The reference's C++ reader, loaded in this process. Test workers
+    started together all build it at collection, in place
+    (``pautdx/native/__init__.py`` writes its library without a temporary
+    file), and a worker that loads a half-written library gives up on it
+    for the rest of its run. Such a worker builds the same source into a
+    private path here, for this module's tests, instead of skipping."""
+    if jnative.native_available():
+        yield
+        return
+    with pytest.MonkeyPatch.context() as m:
+        lib = tmp_path_factory.mktemp("reference_reader") / "_pautdx_io.so"
+        m.setattr(jnative, "_LIB_PATH", str(lib))
+        m.setattr(jnative, "_build_failed", False)
+        m.setattr(jnative, "_lib", None)
+        if not jnative.native_available():
+            pytest.skip("the reference's C++ reader does not build here")
+        yield
+
+
 @pytest.fixture
-def built():
+def built(reference_reader):
     if not native.native_available():
         pytest.skip(f"the C++ reader does not build here: "
                     f"{native.native_error()}")
-    if not jnative.native_available():
-        pytest.skip("the reference's C++ reader does not build here")
 
 
 def _same_volume(a, b):

@@ -165,6 +165,38 @@ def test_int8_conv_reference_rounds_half_to_even():
     assert acc.flatten().tolist() == [0, 254, 254, -254]
 
 
+@pytest.mark.parametrize("ksize,groups", [(1, 1), (3, 1), (3, 16)])
+def test_int8_conv_nonfinite_inputs_match_reference(ksize, groups):
+    """NaN, +inf and -inf in the input: the reference's int8 cast takes NaN
+    to 0 and +-inf to +-127; the port's accumulators and outputs equal its
+    own bit for bit (NaN at pixel (1, 2), +inf at (0, 0), -inf at
+    (3, 3); a 1x1 16 -> 8, a dense 3x3 and a depthwise 3x3)."""
+    rng = np.random.default_rng(16 + ksize + groups)
+    C = 16
+    O = C if groups > 1 else 8
+    x = rng.normal(size=(1, 4, 4, C)).astype(np.float32)
+    x[0, 1, 2, :5] = np.nan
+    x[0, 0, 0, 3:9] = np.inf
+    x[0, 3, 3, 1:4] = -np.inf
+    k = rng.normal(size=(ksize, ksize, C // groups, O)).astype(np.float32)
+    pad = (ksize - 1) // 2
+    s = np.float32(0.1)
+    fn = jax.jit(lambda a, b, c: (
+        jq.int8_conv(a, b, strides=(1, 1), padding=((pad, pad), (pad, pad)),
+                     groups=groups, in_scale=c),
+        _jax_accumulators(a, b, c, 1, pad, groups)))
+    want, acc_want = (np.asarray(t) for t in fn(jnp.asarray(x),
+                                                jnp.asarray(k), s))
+    assert np.isfinite(want).all()
+    prep = qconv.prepare_int8_weight(_oihw(k), s, groups)
+    acc = qconv.int8_accumulators(_nchw(x), prep, 1, pad)
+    np.testing.assert_array_equal(acc.numpy().transpose(0, 2, 3, 1),
+                                  acc_want)
+    got = qconv.int8_conv(_nchw(x), _oihw(k), stride=1, padding=pad,
+                          groups=groups, in_scale=s)
+    np.testing.assert_array_equal(got.numpy().transpose(0, 2, 3, 1), want)
+
+
 # ------------------------------------------------- D-FINE, calibrated
 
 
