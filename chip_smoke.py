@@ -10,13 +10,16 @@ D-FINE training through their entry points, and the signal domain: the
 21-model zoo and HybridBinary served through ``SignalEndpoint``, then
 trained through ``train.signal.train_signal``, and int8 activations in
 serving (D-FINE-nano and YOLOv8n-seg through the s8 x s8 -> s32
-convolution kernel), the HF D-FINE bridge and the C++ volume reader, and
-last the command line, ``python -m pautdx_torch.cli``, every subcommand.
+convolution kernel), the HF D-FINE bridge and the C++ volume reader, the
+command line, ``python -m pautdx_torch.cli``, every subcommand, and last
+multi-device training (NCCL in a world of 1, and four gloo ranks sharing
+the card on a (dp, tp) mesh).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --signal-train    # phases 29-31 alone
     python3 chip_smoke.py --int8            # phases 32-35 alone
     python3 chip_smoke.py --cli             # phase 36 alone
+    python3 chip_smoke.py --multi           # phase 37 alone
 
 Phases, one line each, in order; any failure exits non-zero:
 
@@ -320,7 +323,23 @@ Phases, one line each, in order; any failure exits non-zero:
     predict-bscan``, its detections against (a)'s default run, and
     ``bridge`` with two requests (both answered at their own shapes, the
     checkpoint loaded once); (e) ``build-dataset --yolo``, ``explain``,
-    ``inspect --mode signal``; each subcommand's wall seconds.
+    ``inspect --mode signal``; each subcommand's wall seconds;
+37. multi-device: (a) NCCL in a world of 1 in this process: one
+    b16 640px dfine_nano step of ``Trainer(mesh=make_mesh())`` against the
+    same step without a mesh (loss within 1e-6, every gradient leaf
+    within phase 20's per-leaf rule), and ``python -m pautdx_torch.cli
+    train-signal --dp`` (HybridBinary, 1 epoch over phase 29's volumes) in
+    a process of its own; (b) ``mesh.dryrun.dryrun_multichip`` on four
+    gloo ranks sharing the card, (dp, tp) = (2, 2), dfine_nano at 640px,
+    global batch 16, the kernels built before the spawn: its step against
+    one process's over the whole batch (loss within 1e-4; each gradient
+    leaf within 1e-3 of its norm plus the floor of 1e-6 of the global
+    norm, or four times the one-process step's own noise, the larger move
+    of its rows reversed and rolled by half), its tp eval forward
+    (encoder attention through the fused kernel, 4 of 8 heads a rank)
+    against the unsharded forward by assignment, and every rank's
+    launches of the attention and of both weighted-gather kernels, each
+    above 0; the phase's wall seconds.
 
 The line before last is ``nvidia-smi``'s; before it, one JSON object with
 a record per kernel, and before that the script's wall time. The last line
@@ -4009,6 +4028,162 @@ def cli_phase(torch, dev, counters: dict, wrappers: dict,
     del model, run, tmodel
 
 
+MULTI_RANKS = 4           # phase 37 (b): gloo ranks sharing the one card
+MULTI_BATCH = 16          # the D-FINE-nano training batch, global
+# the ranks' gradient leaf may move up to this many times the larger move
+# of two reorderings of the one-process step's rows: a leaf's f32 spread
+# is heavy-tailed (``multi_spread.py`` on an H100: the ranks' arrangement
+# of this batch moved bbox_embed.0 2.9 times the largest of eight
+# reorderings, three other arrangements within them), and a leaf-local
+# fault moves a leaf by a sizeable share of its norm
+MULTI_NOISE_FACTOR = 4
+
+
+def _nano_step(torch, dev, batch: dict, mesh) -> tuple:
+    """One ``Trainer`` step of ``dfine_nano(2)`` (seed 0) over the host
+    ``batch``, deterministic, under ``mesh`` or none: (the step's row, its
+    clipped gradients)."""
+    from pautdx_torch.models.vision.dfine import DFine, dfine_nano
+    from pautdx_torch.train.detector import dfine_objective
+    from pautdx_torch.train.optim import make_optimizer
+    from pautdx_torch.train.trainer import Trainer
+
+    model = DFine(dfine_nano(num_labels=2), device=dev, seed=0)
+    trainer = Trainer(model, dfine_objective(640, model.cfg),
+                      make_optimizer(1e-4), input_key="images", mesh=mesh)
+    state = trainer.init(batch)
+    with deterministic():
+        _, row = trainer.train_epoch(state, [batch])
+        torch.cuda.synchronize()
+    return row, {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+
+
+def multi_phase(torch, dev) -> None:
+    """Phase 37: (a) NCCL in a world of 1 (the ``Trainer`` under
+    ``make_mesh()`` against the same step without a mesh, every gradient
+    leaf within phase 20's per-leaf rule; ``train-signal --dp`` in a
+    process of its own); (b) ``dryrun_multichip`` on four gloo ranks
+    sharing the card, (dp, tp) = (2, 2), dfine_nano at 640px, global
+    batch 16: the step against one process's over the whole batch, leaf
+    by leaf, the tp eval forward (fused
+    attention, 4 local heads) against the unsharded one by assignment,
+    and every rank's launches of the attention and of both weighted-gather
+    kernels."""
+    from pautdx_torch.mesh import make_mesh
+    from pautdx_torch.mesh.dryrun import (Spec, dryrun_multichip,
+                                          one_process_step, rounding_noise)
+    from pautdx_torch.mesh.launch import launch
+    from pautdx_torch.models.vision.dfine import dfine_nano
+    from pautdx_torch.train.detector import make_train_batches
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    torch.cuda.empty_cache()
+
+    # (a) a world of 1 over NCCL, in this process
+    batch = make_train_batches(1, MULTI_BATCH, 640, seed=37)[0]
+    t0 = time.perf_counter()
+    plain_row, plain = _nano_step(torch, dev, batch, None)
+    row, meshed = launch(lambda: _nano_step(torch, dev, batch, make_mesh()),
+                         1, "cuda")[0]
+    worst, leaf, noise, floor = relative_grad_errors(meshed, plain)
+    diff = max(max_abs_err(meshed[n], plain[n]) for n in plain)
+    check(row["update_was_finite"] == 1.0 and
+          abs(row["total"] - plain_row["total"])
+          <= 1e-6 * abs(plain_row["total"]),
+          f"multi (a): the meshed step's loss {row['total']} against "
+          f"{plain_row['total']}")
+    check(worst <= TRAIN_GRAD_TOL and noise <= floor,
+          f"multi (a): gradient of {leaf} off by {worst:.3g} in norm "
+          f"(under the floor: {noise:.3g} > {floor:.3g})")
+    a_s = time.perf_counter() - t0
+    del plain, meshed
+    root = os.path.join(HERE, "build", "chip_smoke_multi")
+    shutil.rmtree(root, ignore_errors=True)
+    sig = os.path.join(root, "volumes")
+    write_signal_volumes(sig)
+    out = os.path.join(root, "ts_dp")
+    res = cli_processes({"dp": (["train-signal", "--data", sig, "--out", out,
+                                 "--epochs", "1", "--dp"], "")}, root, 600)
+    rc, _, err, cli_s = res["dp"]
+    check(rc == 0, f"train-signal --dp exited {rc}: {err[-2000:]}")
+    hist = read_json(os.path.join(out, "history.json"))
+    check(hist["epoch"] == [0] and all(np.isfinite(hist["train_bce"])),
+          f"train-signal --dp history {hist}")
+    print(f"[37 multi (a)] NCCL, a world of 1: Trainer(mesh=make_mesh()) "
+          f"b{MULTI_BATCH} 640px dfine_nano step against the step without "
+          f"a mesh: loss {row['total']:.6f} against {plain_row['total']:.6f}, "
+          f"worst gradient leaf "
+          f"{worst:.3g} ({leaf or 'none'}; limit {TRAIN_GRAD_TOL}), max "
+          f"|diff| {diff:.3g}, {a_s:.1f} s; python -m pautdx_torch.cli "
+          f"train-signal --dp (HybridBinary, 1 epoch, phase 29's volumes): "
+          f"rc 0, train_bce {hist['train_bce'][0]:.4f}, val_loss "
+          f"{hist['val_loss'][0]:.4f}, {cli_s:.1f} s", flush=True)
+
+    # (b) four gloo ranks on the one card, (dp, tp) = (2, 2)
+    spec = Spec(cfg=dfine_nano(num_labels=2), size=640, batch=MULTI_BATCH,
+                eval_forward=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = dryrun_multichip(MULTI_RANKS, "cuda", spec,
+                           log=lambda m: print(f"    {m}", flush=True))
+    ranks_s = time.perf_counter() - t0
+    check(got["mesh"] == (2, 2), f"multi (b): mesh {got['mesh']}")
+    for r in got["ranks"]:
+        counts = {**r["eval_launches"], **{k: v for k, v in
+                                           r["launches"].items()
+                                           if k != "aifi_attention"}}
+        check(all(v > 0 for v in counts.values()),
+              f"multi (b): rank {r['rank']} launched {counts}")
+    want = one_process_step(spec, dev)
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    check(loss_err <= TRAIN_LOSS_TOL, f"multi (b): loss {got['loss']} "
+          f"against one process's {want['loss']}")
+    noise = rounding_noise(spec, want, dev)
+    gw = want["grads"]
+    floor = grad_floor(gw)
+    ratios = {}
+    for n, g in gw.items():
+        err = (got["grads"][n] - g).norm().item()
+        lim = max(TRAIN_GRAD_TOL * g.norm().item() + floor,
+                  MULTI_NOISE_FACTOR * noise[n])
+        ratios[n] = (err / lim, err, lim)
+    top = sorted(ratios.items(), key=lambda kv: -kv[1][0])[:6]
+    whole = global_grad_error(got["grads"], gw)
+    noise_whole = (sum(v * v for v in noise.values())
+                   / sum(float(g.double().pow(2).sum())
+                         for g in gw.values())) ** 0.5
+    print(f"    gradients: global error {whole:.3g} (reordering the rows: "
+          f"{noise_whole:.3g}); worst leaves "
+          + "; ".join(f"{n} {r:.3g} ({e:.3g} / {l:.3g})"
+                      for n, (r, e, l) in top), flush=True)
+    n, (r, e, l) = top[0]
+    check(r <= 1.0, f"multi (b): gradient of {n} off by {e:.3g} > {l:.3g}")
+    why = same_detections(*(t.float().numpy() for t in (
+        got["eval"]["logits"], got["eval"]["pred_boxes"],
+        want["eval"]["logits"], want["eval"]["pred_boxes"])))
+    check(not why, f"multi (b): tp eval forward against one process: {why}")
+    eval_diff = max_abs_err(got["eval"]["logits"], want["eval"]["logits"])
+    print(f"[37 multi (b)] dryrun_multichip({MULTI_RANKS}): gloo ranks on "
+          f"cuda:0, (dp, tp) = (2, 2), dfine_nano 640px, global batch "
+          f"{MULTI_BATCH} ({MULTI_BATCH // 2} a dp rank): loss "
+          f"{got['loss']:.6f} against one process's {want['loss']:.6f} "
+          f"(rel {loss_err:.3g}); gradients against one process's: each "
+          f"leaf within 1e-3 of its norm plus the floor {floor:.3g}, or "
+          f"{MULTI_NOISE_FACTOR} times the one-process step's own noise (its "
+          f"rows reversed or rolled by half), worst {n} at {r:.3g} of its "
+          f"limit; tp eval "
+          f"forward (encoder attention fused, 4 of 8 heads a rank) matches "
+          f"the unsharded one by assignment (slot by slot max |logit diff| "
+          f"{eval_diff:.3g}); launches by rank: "
+          + "; ".join(f"{r['rank']}: eval {r['eval_launches']}, step "
+                      f"{r['launches']}" for r in got["ranks"])
+          + f"; ranks {ranks_s:.1f} s with their start", flush=True)
+    print(f"[37 multi] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     # before torch's first cuBLAS call: the step checks run under
     # deterministic algorithms
@@ -4071,6 +4246,13 @@ def main() -> None:
         print(f"[2 build] {_build.build():.2f} s of parallel nvcc",
               flush=True)
         cli_phase(torch, dev, counters, wrappers, none)
+        print(f"[wall] {time.perf_counter() - t_start:.1f} s", flush=True)
+        return
+    if sys.argv[1:] == ["--multi"]:            # phase 37 alone
+        print(f"[1 device] {smi_line()}", flush=True)
+        print(f"[2 build] {_build.build():.2f} s of parallel nvcc",
+              flush=True)
+        multi_phase(torch, dev)
         print(f"[wall] {time.perf_counter() - t_start:.1f} s", flush=True)
         return
     if sys.argv[1:] == ["--int8"]:             # phases 32-35 alone
@@ -4431,6 +4613,7 @@ def main() -> None:
                            fps["kernels"])
     host_phase(torch, dev)
     cli_phase(torch, dev, counters, wrappers, none)
+    multi_phase(torch, dev)
 
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all, the kernels' build included", flush=True)

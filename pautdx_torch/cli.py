@@ -488,8 +488,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seq-len", type=int)
     t.add_argument("--defect-focused", action="store_true")
     t.add_argument("--dp", action="store_true",
-                   help="data-parallel over all local devices (not "
-                        "ported yet: raises)")
+                   help="data-parallel over all local devices: one rank a "
+                        "card over NCCL (--device cpu: one gloo rank; under "
+                        "torchrun, its world)")
     _device_flag(t)
     t.set_defaults(fn=_cmd_train_signal)
 

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from pautdx_torch.mesh.comm import dp_count
+
 _EPS = 1e-7
 
 
@@ -27,7 +29,7 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
     if mask is None:
         return x.mean()
     mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+    return (x * mask).sum() / dp_count(mask.sum(), floor=1.0)
 
 
 def bce(probs: torch.Tensor, targets: torch.Tensor,
@@ -78,5 +80,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = class_weights[labels]
         if mask is not None:
             w = w * mask
-        return (loss * w).sum() / w.sum().clamp(min=_EPS)
+        return (loss * w).sum() / dp_count(w.sum(), floor=_EPS)
     return _masked_mean(loss, mask)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from pautdx_torch.losses.detr import box_cxcywh_to_xyxy, giou_xyxy
+from pautdx_torch.mesh.comm import dp_count
 from pautdx_torch.models.vision.dfine import inverse_sigmoid
 
 NEG_INF = -1e9      # the additive mask's blocked entry
@@ -131,7 +132,7 @@ def denoising_loss(dn_logits: torch.Tensor, dn_boxes: torch.Tensor,
     src_boxes = gt_boxes[b_idx, dn["gt_index"]]
     src_classes = gt_classes[b_idx, dn["gt_index"]].long().clamp(min=0)
     pos = dn["is_positive"].float()
-    num_pos = pos.sum().clamp(min=1.0)
+    num_pos = dp_count(pos.sum(), floor=1.0)
 
     t_cls = F.one_hot(src_classes, C).to(dn_logits.dtype) * pos[..., None]
     logz = torch.log1p(torch.exp(-dn_logits.abs())) \

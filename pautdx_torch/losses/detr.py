@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pautdx_torch.mesh.comm import dp_count
 from pautdx_torch.models.vision.dfine import weighting_function
 from pautdx_torch.ops.lapjv import lapjv_batch
 
@@ -140,11 +141,11 @@ def _ddf_loss(student_corners: torch.Tensor, teacher_corners: torch.Tensor,
     kl = (q * (F.log_softmax(t, -1) - F.log_softmax(s, -1))).sum(-1)
     kl = (temperature ** 2) * kl.mean(-1) * weight.detach()
     pos = pos_mask.sum()
-    neg = B * Q - pos
-    mean_pos = (kl * pos_mask).sum() / pos.clamp(min=1.0)
-    mean_neg = (kl * (1.0 - pos_mask)).sum() / neg.clamp(min=1.0)
-    wp = pos.sqrt()
-    wn = neg.sqrt()
+    counts = torch.stack([pos, B * Q - pos])
+    floor = dp_count(counts, floor=1.0)
+    mean_pos = (kl * pos_mask).sum() / floor[0]
+    mean_neg = (kl * (1.0 - pos_mask)).sum() / floor[1]
+    wp, wn = dp_count(counts).sqrt()
     return (mean_pos * wp + mean_neg * wn) / (wp + wn).clamp(min=1e-8)
 
 
@@ -173,7 +174,7 @@ def dfine_criterion(outputs: Dict, gt_boxes: torch.Tensor,
     dev = gt_boxes.device
     gt_mask = gt_mask.to(torch.float32)
     project = weighting_function(max_num_bins, up, reg_scale).to(dev)
-    num_boxes = gt_mask.sum().clamp(min=1.0)
+    num_boxes = dp_count(gt_mask.sum(), floor=1.0)
     B, M = gt_mask.shape
     b_idx = torch.arange(B, device=dev)[:, None]
     cls_idx = gt_classes.long().clamp(min=0)

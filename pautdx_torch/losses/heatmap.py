@@ -19,6 +19,7 @@ import torch
 
 from pautdx_torch.losses.classification import focal_bce_with_logits
 from pautdx_torch.losses.regression import interval_iou_1d
+from pautdx_torch.mesh.comm import dp_count
 from pautdx_torch.models.signal.detloc1d import STRIDES
 
 
@@ -78,7 +79,7 @@ def detloc_criterion(outs: List[Dict[str, torch.Tensor]],
         total_cls = total_cls + focal_bce_with_logits(out["cls"],
                                                       tgt["heatmap"])
         pm = tgt["pos_mask"]
-        denom = pm.sum().clamp(min=1.0)
+        denom = dp_count(pm.sum(), floor=1.0)
         # tanh on the offset, as decode_1d decodes it
         pred_off = torch.tanh(out["reg"][..., 0])
         pred_lw = out["reg"][..., 1]

@@ -20,6 +20,7 @@ from pautdx_torch.losses.regression import (
     focal_l1, interval_iou_1d, masked_iou_loss, masked_l1, masked_smooth_l1,
     temporal_consistency, uncertainty_regularizer,
 )
+from pautdx_torch.mesh.comm import dp_count
 
 Aux = Dict[str, torch.Tensor]
 
@@ -39,7 +40,7 @@ def enhanced_position_loss(pred: torch.Tensor, target: torch.Tensor,
     pred_len = pred[..., 1] - pred[..., 0]
     tgt_len = target[..., 1] - target[..., 0]
     m = torch.broadcast_to(mask, pred_len.shape).to(pred.dtype)
-    denom = m.sum().clamp(min=1.0)
+    denom = dp_count(m.sum(), floor=1.0)
     length = ((pred_len - tgt_len).abs() * m).sum() / denom
     # start below end by a margin
     cons = ((pred[..., 0] - pred[..., 1] + 0.01).clamp(min=0.0)
@@ -107,4 +108,4 @@ def position_accuracy_iou(pred: torch.Tensor, target: torch.Tensor,
     iou = interval_iou_1d(pred, target)
     m = torch.broadcast_to(mask, iou.shape).to(iou.dtype)
     hits = ((iou >= threshold).to(iou.dtype) * m).sum()
-    return hits / m.sum().clamp(min=1.0)
+    return hits / dp_count(m.sum(), floor=1.0)

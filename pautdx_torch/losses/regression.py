@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from pautdx_torch.mesh.comm import dp_count
+
 
 def interval_iou_1d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """IoU of (..., 2) [start, end] intervals."""
@@ -27,7 +29,7 @@ def _apply_mask(loss: torch.Tensor, mask: Optional[torch.Tensor]
     if mask is None:
         return loss.mean()
     mask = torch.broadcast_to(mask, loss.shape).to(loss.dtype)
-    return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+    return (loss * mask).sum() / dp_count(mask.sum(), floor=1.0)
 
 
 def _trailing(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

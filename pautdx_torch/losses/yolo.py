@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from pautdx_torch.mesh.comm import dp_count
 from pautdx_torch.models.vision.yolo import YoloConfig, decode_boxes
 
 
@@ -171,7 +172,7 @@ def yolo_loss(result: Dict, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
                                  gt_classes, gt_mask, pts)
     tgt_scores = assign["target_scores"]
     fg = assign["fg"]
-    score_sum = tgt_scores.sum().clamp(min=1.0)
+    score_sum = dp_count(tgt_scores.sum(), floor=1.0)
 
     # cls BCE with soft targets over all anchors
     logz = _log1p_exp_neg(cls_logits)

@@ -339,12 +339,14 @@ class TorchMHA(nn.Module):
     def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, d = x.shape
-        h = self.num_heads
-        dh = d // h
+        dh = d // self.num_heads
         qk_in = x if pos is None else x + pos
         q = self.q_proj(qk_in) * (dh ** -0.5)
         k = self.k_proj(qk_in)
         v = self.v_proj(x)
+        # this rank's heads: all of them, or 1/tp of them where the
+        # projections are column-parallel (mesh.tp)
+        h = q.shape[-1] // dh
         if self.fused and not self.training and attn_mask is None:
             return self.out_proj(attention.aifi_attention(q, k, v, h))
 
@@ -355,7 +357,7 @@ class TorchMHA(nn.Module):
         if attn_mask is not None:
             logits = logits + attn_mask.to(logits.dtype)
         w = self.attn_drop(torch.softmax(logits, dim=-1))
-        out = torch.matmul(w, split(v)).transpose(1, 2).reshape(B, N, d)
+        out = torch.matmul(w, split(v)).transpose(1, 2).reshape(B, N, h * dh)
         return self.out_proj(out)
 
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pautdx_torch.device import resolve_device
+from pautdx_torch.mesh import comm
 from pautdx_torch.ops.qconv import Int8Site
 
 
@@ -127,7 +128,22 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm2d`` differs on two counts: its ``momentum`` is the
     weight of the batch (1 - m here), and it updates the running
     variance with the unbiased one. Unlike it, this module has no
-    ``num_batches_tracked`` buffer, which no JAX leaf would fill."""
+    ``num_batches_tracked`` buffer, which no JAX leaf would fill.
+
+    Across devices (``mesh.comm.dp_scope``), a training forward normalises
+    with the GLOBAL batch's mean and biased variance, as the reference's
+    single program over the global batch does: every rank's (n, mean,
+    biased variance), two-pass in f32 (float64 for a float64 input), go
+    through one differentiable ``all_reduce`` over the dp group and
+    combine by the parallel-variance formula, so the backward is the
+    global one too, and every rank updates its running statistics alike. ``torch.nn.SyncBatchNorm`` would not do: it refuses
+    CPU tensors, and its momentum and running variance are
+    ``nn.BatchNorm2d``'s. Behind a column-parallel convolution
+    (``mesh.tp``), ``tp_slice`` = (tp group, lo, hi): the input holds
+    channels lo:hi, the module keeps its full (C,) vectors and uses their
+    slice, the gradients of weight and bias (zero outside the slice) are
+    summed over tp, and the slice of the running statistics is gathered
+    over tp, so every vector stays replicated."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = BN_MOMENTUM):
@@ -138,8 +154,13 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.tp_slice = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = comm.dp_group()
+        if self.tp_slice is not None or (self.training
+                                         and group is not None):
+            return self._distributed(x, group)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -154,6 +175,60 @@ class BatchNorm(nn.Module):
                            self.bias, True, 1.0 - self.momentum, self.eps)
         torch.mul(scaled.detach(), (n - 1) / n, out=self.running_var)
         return out
+
+    @staticmethod
+    def _global_moments(mean: torch.Tensor, var: torch.Tensor, n: int,
+                        group) -> tuple:
+        """The global batch's (mean, biased variance) from every rank's
+        own, by the parallel-variance formula (Chan et al.): each rank's
+        (count, mean, variance) travel in its own row of one zero-filled
+        ``all_reduce``, so no sum of squares cancels against the mean."""
+        size, rank = comm.group_size(group), comm.group_rank(group)
+        mine = torch.cat([mean.new_full((1,), float(n)), mean, var])
+        rows = [mine if r == rank else torch.zeros_like(mine)
+                for r in range(size)]
+        every = comm.all_reduce(torch.stack(rows), group)
+        C = mean.shape[0]
+        counts, means, vars_ = every[:, :1], every[:, 1:C + 1], \
+            every[:, C + 1:]
+        total = counts.sum()
+        g_mean = (counts * means).sum(0) / total
+        spread = counts * (vars_ + (means - g_mean) ** 2)
+        return g_mean, spread.sum(0) / total
+
+    def _distributed(self, x: torch.Tensor, group) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        rm, rv = self.running_mean, self.running_var
+        if self.tp_slice is not None:
+            tp, lo, hi = self.tp_slice
+            w, b = (comm.copy_to_tp(t, tp)[lo:hi] for t in (w, b))
+            rm, rv = rm[lo:hi], rv[lo:hi]
+        if not self.training:
+            return F.batch_norm(x, rm, rv, w, b, False, 0.0, self.eps)
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, C] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        dev = xf - mean.reshape(shape)
+        var = (dev * dev).mean(dims)
+        if group is not None:
+            mean, var = self._global_moments(mean, var, x.numel() // C,
+                                             group)
+        scale = torch.rsqrt(var + self.eps) * w.to(xf.dtype)
+        out = (xf - mean.reshape(shape)) * scale.reshape(shape) \
+            + b.to(xf.dtype).reshape(shape)
+        with torch.no_grad():
+            m = self.momentum
+            new_mean = m * rm + (1 - m) * mean.detach().to(rm.dtype)
+            new_var = m * rv + (1 - m) * var.detach().to(rv.dtype)
+            if self.tp_slice is not None:
+                tp, lo, hi = self.tp_slice
+                new_mean = comm.gather_slices(new_mean, tp)
+                new_var = comm.gather_slices(new_var, tp)
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+        return out.to(x.dtype)
 
 
 class LearnableAffine(nn.Module):

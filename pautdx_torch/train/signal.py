@@ -17,6 +17,19 @@ the recipe's lr, decay and clip alone, so the ``two_stage`` and
 cosine decay that they declare (ROADMAP.md, queue 3). Here
 :func:`recipe_optimizer` gives the optimizer both.
 
+``dp=True`` is the reference's data-parallel training over every local
+device (its ``make_mesh()``): one rank a card over NCCL, a world of 1
+on a one-card machine; with ``device="cpu"``, one gloo rank, as the
+reference's mesh over its one CPU device; under ``torchrun``
+(``WORLD_SIZE`` set), that world. The ``Trainer`` runs under the mesh:
+the global batch is split over the ranks (it must divide), each
+BatchNorm and loss sees the global batch, and the ragged last validation
+batch is padded and masked (``train.trainer``). Where the ranks are
+processes of their own (more than one card), they keep their state: the
+trainer and state returned are then one process's, restored from the
+last checkpoint that rank 0 wrote under ``out`` (weights, BatchNorm
+statistics, optimizer state, EMA and step) with the history it wrote.
+
 The checkpoint's metadata adds ``signal_length`` to the reference's
 ``model``, ``recipe`` and ``seq_len``: the models that read raw samples
 need it to be rebuilt. The ``train-signal`` subcommand (``cli.py``) draws
@@ -26,8 +39,11 @@ reference's does.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
+import torch.distributed as dist
 from torch import nn
 
 from pautdx_torch.data.datasets import (
@@ -35,6 +51,8 @@ from pautdx_torch.data.datasets import (
     train_val_split,
 )
 from pautdx_torch.device import Device, resolve_device
+from pautdx_torch.mesh import make_mesh, mesh_device
+from pautdx_torch.mesh.launch import backend_for, launch
 from pautdx_torch.models.signal import build_signal_model
 from pautdx_torch.train.checkpoint import CheckpointManager, load_model_state
 from pautdx_torch.train.optim import (
@@ -72,11 +90,59 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
     dropout masks. ``signal_length`` must be the volumes' samples a
     signal; None takes it from the volumes. Returns the trainer (its
     ``history``) and the trained state."""
-    if dp:
-        raise NotImplementedError(
-            "train_signal(dp=True): data-parallel training is not ported "
-            "yet (ROADMAP.md, queue 1, item 14)")
     dev = resolve_device(device)
+    kw = dict(data_dir=data_dir, out=out, model=model, recipe=recipe,
+              epochs=epochs, batch_size=batch_size, seq_len=seq_len,
+              defect_focused=defect_focused, signal_length=signal_length,
+              seed=seed)
+    if dp:
+        return _train_dp(kw, dev, log)
+    return _train(dev=dev, log=log, **kw)[:2]
+
+
+def _train_dp(kw: Dict, dev: torch.device, log,
+              n: Optional[int] = None) -> Tuple[Trainer, TrainState]:
+    """``train_signal(dp=True)``: in a group that is up already (under
+    ``torchrun``), this rank's run; else ``n`` ranks (every card; one on
+    the CPU), a world of 1 in this process."""
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        dist.init_process_group(backend_for(dev.type, int(
+            os.environ["WORLD_SIZE"])), init_method="env://")
+    if dist.is_initialized():
+        return _dp_rank(kw, dev.type, log)
+    n = n or (torch.cuda.device_count() if dev.type == "cuda" else 1)
+    if n == 1:
+        return launch(_dp_rank, 1, dev.type, args=(kw, dev.type, log))[0]
+    threads = (max(1, torch.get_num_threads() // n) if dev.type == "cpu"
+               else None)
+    launch(_dp_spawned, n, dev.type, args=(kw, dev.type), threads=threads)
+    trainer, state, _ = _train(dev=dev, log=log, fit=False, **kw)
+    ckpt = CheckpointManager(kw["out"])
+    state.load_state_dict(ckpt.restore("latest")[0])
+    trainer.history = ckpt.load_history()
+    return trainer, state
+
+
+def _dp_rank(kw: Dict, device: str, log: Callable[[str], None] = print
+             ) -> Tuple[Trainer, TrainState]:
+    """This rank's run under a dp mesh over the whole world."""
+    mesh = make_mesh(dist.get_world_size(), device=device)
+    return _train(dev=mesh_device(mesh), mesh=mesh, log=log, **kw)[:2]
+
+
+def _dp_spawned(kw: Dict, device: str) -> None:
+    """A spawned rank: its state stays here (rank 0 checkpoints it)."""
+    _dp_rank(kw, device)
+
+
+def _train(data_dir: str, out: str, model: str, recipe: str,
+           epochs: Optional[int], batch_size: Optional[int],
+           seq_len: Optional[int], defect_focused: bool,
+           signal_length: Optional[int], seed: int, dev: torch.device,
+           log: Callable[[str], None], mesh=None, fit: bool = True
+           ) -> Tuple[Trainer, TrainState, int]:
+    """(trainer, state, signal length) of the run; ``fit=False`` stops
+    before the first epoch."""
     rec = RECIPES[recipe]
     seq_len = seq_len or rec.seq_len
     ds = load_json_dir(data_dir, seq_len=seq_len)
@@ -99,8 +165,10 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
                              device=dev)
     trainer = Trainer(net, rec.make_objective(),
                       recipe_optimizer(rec, n_epochs * n_batches),
-                      checkpoint_dir=out, seed=seed)
+                      mesh=mesh, checkpoint_dir=out, seed=seed)
     state = trainer.init(next(iter(BatchIterator(train_ds, bs))))
+    if not fit:
+        return trainer, state, signal_length
     state = trainer.fit(
         state,
         lambda: BatchIterator(train_ds, bs, seed=1),
@@ -113,7 +181,7 @@ def train_signal(data_dir: str, out: str, model: str = "HybridBinary",
         metadata={"model": model, "recipe": recipe, "seq_len": seq_len,
                   "signal_length": signal_length},
         log=log)
-    return trainer, state
+    return trainer, state, signal_length
 
 
 def restore_signal_model(ckpt_dir: str, device: Device = None

@@ -32,23 +32,50 @@ it, and :func:`ema_weights` evaluates it with the live BN statistics.
 train=True)`` by ``forward(model, batch)``, which is how the denoising
 groups, drawn from the batch's boxes, reach the model.
 
-Not ported: ``mesh=`` (data parallelism, ROADMAP queue 1, item 14). The
-input pipeline keeps ``PREFETCH`` batches in flight, copied from pinned
-host memory with ``non_blocking=True``; host-side batch assembly runs on
-a thread through ``data.prefetch.ThreadedHostLoader`` where the caller
-wraps its batches in one.
+The input pipeline (``data.prefetch.device_prefetch``) keeps
+``PREFETCH`` batches in flight, copied from pinned host memory with
+``non_blocking=True``; host-side batch assembly runs on a thread through
+``data.prefetch.ThreadedHostLoader`` where the caller wraps its batches
+in one.
 
 Dropout: the reference draws a step's masks from ``fold_in(PRNGKey(seed),
 step)`` (``trainer.py:110-111``). Here the trainer owns a
 ``torch.Generator`` on the model's device, hands it to every
 ``nn.blocks.Dropout`` of the model, and seeds it before each step from
-(``seed``, step), so a step's masks depend on the seed and the step alone,
+(``seed``, step, dp rank), so a step's masks depend on those alone,
 whatever ran before in the process. The streams are torch's, not JAX's.
+The dp rank, never the global rank: two tp ranks of one replica must
+draw the same mask over a replicated activation.
+
+``mesh=`` (a ``mesh.make_mesh`` mesh; this process is one of its ranks)
+is the reference's data parallelism, one program over the global batch,
+rebuilt across processes:
+
+- the model runs under ``DistributedDataParallel`` over the mesh's dp
+  group (parameters broadcast from its rank 0 at init), and each rank
+  copies only its rows of every batch; a training batch must divide by
+  the dp size, as the reference's must;
+- the step runs in ``mesh.comm.dp_scope``: every BatchNorm normalises
+  with the global batch's moments and the losses divide by global counts
+  (``mesh.comm.dp_count``), so the averaged gradient is the global
+  batch's;
+- the guard's flags are summed over the ranks, so every rank applies or
+  refuses the same step; the aux values are averaged over them, so
+  ``history`` is the global batch's;
+- ``evaluate`` runs each rank's rows (a ragged batch padded), gathers the
+  outputs and the rows over dp, drops the padding and evaluates the
+  objective over the global batch, on every rank alike. The reference
+  cannot place such a batch and raises (ROADMAP.md, its faults);
+- checkpoints, ``history.json`` and the log are written by the process
+  of global rank 0 only; the EMA is the same on every rank.
+
+A mesh with a ``tp`` axis works on a model already sharded by
+``mesh.tp.shard_params`` (the gradient norm then sums the shards' squares
+over tp); checkpointing such a model is not supported.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import inspect
@@ -57,8 +84,13 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from pautdx_torch.data.prefetch import device_prefetch
+from pautdx_torch.mesh import (ROW_MASK, axis_group, axis_rank, axis_size,
+                               batch_sharding, comm)
+from pautdx_torch.mesh.tp import grad_norm as tp_grad_norm, tp_group_of
 from pautdx_torch.nn.blocks import set_dropout_generator
 from pautdx_torch.train.checkpoint import CheckpointManager, load_model_state
 from pautdx_torch.train.optim import (ClippedAdamW, OptimizerSpec,
@@ -69,11 +101,29 @@ from pautdx_torch.utils.debug import guarded
 PREFETCH = 2      # batches whose host-to-device copies run ahead of the step
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, dp_rank: int = 0) -> int:
     """The dropout generator's seed for ``step`` of a run seeded ``seed``
-    (the counterpart of ``fold_in(PRNGKey(seed), step)``)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
-        1, np.uint64)[0])
+    on dp rank ``dp_rank`` (the counterpart of ``fold_in(PRNGKey(seed),
+    step)``; dp rank 0 draws what one process draws)."""
+    key = [seed, step] + ([dp_rank] if dp_rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+
+
+def data_parallel(model: nn.Module, group) -> nn.Module:
+    """``model`` under ``DistributedDataParallel`` over ``group``: its
+    parameters and buffers broadcast from the group's rank 0 now, its
+    gradients averaged over the group in every backward. The buffers are
+    not broadcast again (the BatchNorms keep them equal); parameters a
+    step leaves unused are allowed (D-FINE's denoising embedding)."""
+    import warnings
+
+    from torch.nn.parallel import DistributedDataParallel
+
+    with warnings.catch_warnings():     # newer torch renames the option
+        warnings.simplefilter("ignore", FutureWarning)
+        return DistributedDataParallel(model, process_group=group,
+                                       broadcast_buffers=False,
+                                       find_unused_parameters=True)
 
 
 def _cpu(tree):
@@ -143,11 +193,19 @@ class Trainer:
                  ema_decay: Optional[float] = None, seed: int = 0,
                  input_key: str = "signals",
                  forward: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data-parallel training is not ported "
-                "yet (ROADMAP.md, queue 1, item 14)")
         self.model = model
+        self.mesh = mesh
+        self.dp_group = axis_group(mesh, "dp") if mesh is not None else None
+        self.dp_size = axis_size(mesh, "dp") if mesh is not None else 1
+        self.dp_rank = axis_rank(mesh, "dp") if mesh is not None else 0
+        self.is_main = mesh is None or dist.get_rank() == 0
+        self._tp_group = tp_group_of(model)
+        if self._tp_group is not None and checkpoint_dir:
+            raise NotImplementedError("Trainer: checkpoints of a "
+                                      "tensor-parallel model")
+        # what the training forward calls: the model, or its DDP wrapper
+        self.net = (data_parallel(model, self.dp_group)
+                    if self.dp_group is not None else model)
         self.objective = guarded(objective)
         self.optimizer = optimizer
         self.ema_decay = ema_decay
@@ -160,8 +218,8 @@ class Trainer:
             lambda m, batch: self._call(m, batch[input_key], True))
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
-        self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir \
-            else None
+        self.ckpt = CheckpointManager(checkpoint_dir) \
+            if checkpoint_dir and self.is_main else None
         self.history: Dict[str, list] = {}
         self._bn_snapshot: Optional[List[torch.Tensor]] = None
 
@@ -197,30 +255,39 @@ class Trainer:
         """One guarded step on a batch already on the device, then the
         EMA's; returns the objective's aux plus ``update_was_finite`` and
         ``grad_norm``."""
+        if ROW_MASK in batch:
+            raise ValueError(f"Trainer: a training batch must divide by the "
+                             f"{self.dp_size} dp ranks (drop the remainder)")
         model, opt = state.model, state.optimizer
         bufs = self._bn_buffers()
         if bufs:
             if self._bn_snapshot is None:
                 self._bn_snapshot = [torch.empty_like(b) for b in bufs]
             torch._foreach_copy_(self._bn_snapshot, bufs)
-        self.generator.manual_seed(step_seed(self.seed, state.step))
+        self.generator.manual_seed(step_seed(self.seed, state.step,
+                                             self.dp_rank))
         if not self._sets_own_mode:
             model.train()
-        out = self.forward(model, batch)
-        loss, aux = self.objective(out, batch)
-        opt.zero_grad()
-        loss.backward()
-        grad_norm = global_norm(opt.grads())
-        finite = torch.isfinite(grad_norm)
-        if "loss_was_finite" in aux:
-            finite = finite & (aux["loss_was_finite"] > 0)
-        names = list(aux)
+        with comm.dp_scope(self.dp_group):
+            out = self.forward(self.net, batch)
+            loss, aux = self.objective(out, batch)
+            opt.zero_grad()
+            loss.backward()
+        grads = opt.grads()
+        grad_norm = (global_norm(grads) if self._tp_group is None
+                     else tp_grad_norm(model, grads))
+        loss_ok = aux.get("loss_was_finite", torch.ones(()))
+        names = [k for k in aux if k != "loss_was_finite"]
         dev = grad_norm.device
         values = torch.stack(
-            [finite.float(), grad_norm]
+            [(~torch.isfinite(grad_norm)).float(),
+             (torch.as_tensor(loss_ok, device=dev) <= 0).float().reshape(()),
+             grad_norm]
             + [torch.as_tensor(aux[k], device=dev).float().reshape(())
-               for k in names]).tolist()     # the step's one host sync
-        if values[0] > 0:
+               for k in names])
+        values = self._ranks_mean(values).tolist()  # the step's host sync
+        refused, loss_bad = values[0] > 0 or values[1] > 0, values[1] > 0
+        if not refused:
             opt.step(lr_scale, grad_norm)
         elif bufs:
             torch._foreach_copy_(bufs, self._bn_snapshot)
@@ -228,40 +295,53 @@ class Trainer:
             ema_update(state.ema, dict(model.named_parameters()),
                        self.ema_decay)
         state.step += 1
-        row = dict(zip(names, values[2:]))
-        row["update_was_finite"] = values[0]
-        row["grad_norm"] = values[1]
+        means = dict(zip(names, values[3:]))
+        row = {k: (0.0 if loss_bad else 1.0) if k == "loss_was_finite"
+               else means[k] for k in aux}
+        row["update_was_finite"] = 0.0 if refused else 1.0
+        row["grad_norm"] = values[2]
         return row
+
+    def _ranks_mean(self, values: torch.Tensor) -> torch.Tensor:
+        """``values`` averaged over every rank (the tp ranks of a replica
+        hold the same values, so this is the mean over dp)."""
+        if self.mesh is None or dist.get_world_size() == 1:
+            return values
+        values = values.contiguous()
+        dist.all_reduce(values)
+        return values / dist.get_world_size()
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """The objective over a batch; under a mesh, ``batch`` holds this
+        rank's rows (``row_mask`` marking a ragged batch's padding), and
+        the objective runs over the gathered global batch, padding
+        dropped, on every rank alike."""
         out = self._call(state.model, batch[self.input_key], False)
+        if self.dp_group is not None:
+            out, batch = self._gathered(out, batch)
         loss, aux = self.objective(out, batch)
         aux = dict(aux)
         aux["loss"] = loss
         return {k: float(v) for k, v in aux.items()}, out
 
-    # -- loops ------------------------------------------------------------
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        dev = self.device
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            if dev.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory()
-            out[k] = t.to(dev, non_blocking=True)
-        return out
+    def _gathered(self, out, batch: Dict[str, torch.Tensor]):
+        rows = len(batch[self.input_key])
+        mask = batch.get(ROW_MASK)
+        total = rows * self.dp_size
+        if mask is not None:
+            total = int(comm.gather_slices(mask, self.dp_group).sum())
+        batch = {k: v for k, v in batch.items() if k != ROW_MASK}
+        return (comm.gather_rows(out, self.dp_group, rows, total),
+                comm.gather_rows(batch, self.dp_group, rows, total))
 
+    # -- loops ------------------------------------------------------------
     def _input_pipeline(self, batches: Iterable) -> Iterable:
         """Keep ``PREFETCH`` batches' host-to-device copies enqueued ahead
-        of the step that uses them."""
-        queue: collections.deque = collections.deque()
-        for b in batches:
-            queue.append(self._to_device(b))
-            if len(queue) > PREFETCH:
-                yield queue.popleft()
-        while queue:
-            yield queue.popleft()
+        of the step that uses them; under a mesh, this rank's rows."""
+        sharding = (batch_sharding(self.mesh) if self.dp_group is not None
+                    else None)
+        return device_prefetch(batches, self.device, PREFETCH, sharding)
 
     def train_epoch(self, state: TrainState, batches: Iterable,
                     lr_scale: float = 1.0):
@@ -289,6 +369,8 @@ class Trainer:
             early_stop_patience: Optional[int] = None,
             metadata: Optional[Dict] = None,
             log: Callable[[str], None] = print):
+        if not self.is_main:
+            log = lambda msg: None   # noqa: E731 (rank 0 logs)
         best_val = float("inf")
         bad = 0
         lr_scale = 1.0

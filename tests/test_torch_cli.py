@@ -470,9 +470,14 @@ def test_train_signal_and_export_round_trip(setup):
         for g, w in zip(torch.utils._pytree.tree_leaves(got),
                         torch.utils._pytree.tree_leaves(want)):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcli.main(["train-signal", "--data", setup["sig"], "--out", out,
-                   "--dp", "--device", "cpu"])
+    # --dp on the CPU: one gloo rank, the same history as the run above
+    dp_out = str(setup["root"] / "train_signal_dp")
+    tcli.main(["train-signal", "--data", setup["sig"], "--out", dp_out,
+               "--model", "MLP", "--epochs", "1", "--batch-size", "4",
+               "--seq-len", str(SEQ_LEN), "--dp", "--device", "cpu"])
+    dp_hist = json.load(open(os.path.join(dp_out, "history.json")))
+    assert {k: v for k, v in dp_hist.items() if k != "time_s"} == \
+        {k: v for k, v in hist.items() if k != "time_s"}
 
 
 # ------------------------------------------------------------ training

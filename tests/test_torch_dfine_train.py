@@ -22,6 +22,8 @@ from pautdx.losses import denoising as j_denoising
 from pautdx.losses.detr import dfine_criterion as j_criterion
 from pautdx.models.vision import dfine as jdf
 from pautdx_torch.compat.jax_weights import load_jax_variables, port_state_dict
+from pautdx_torch.mesh import make_mesh
+from pautdx_torch.mesh.launch import launch
 from pautdx_torch.models.vision import dfine as tdf
 from pautdx_torch.train.detector import dfine_objective, make_train_batches
 from pautdx_torch.train.optim import make_optimizer
@@ -236,8 +238,20 @@ def test_non_finite_step_changes_nothing(reference):
     for k, v in state.optimizer.adamw.state.items():
         for n, t in v.items():
             assert torch.equal(t, moments[k][n]), n
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(model, None, make_optimizer(LR), mesh=object())
+    # the same refusal under a dp mesh (one gloo rank in this process)
+
+    def under_mesh():
+        mt = Trainer(model, dfine_objective(IMG, model.cfg),
+                     make_optimizer(LR), input_key="images",
+                     mesh=make_mesh(1, device="cpu"))
+        mstate = mt.init(bad)
+        _, row = mt.train_epoch(mstate, [bad])
+        return row, mstate.optimizer.count
+
+    row, count = launch(under_mesh, 1, "cpu")[0]
+    assert row["update_was_finite"] == 0.0 and count == 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 def test_checkpoint_restores_the_model(reference, tmp_path):

@@ -58,6 +58,10 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a card is present: the default device is valid")
     from pautdx_torch import resolve_device
     from pautdx_torch.compat.jax_weights import load_jax_variables
+    from pautdx_torch.mesh import make_mesh
+    from pautdx_torch.mesh.dryrun import dryrun_multichip
+    from pautdx_torch.mesh.dryrun import main as dryrun_main
+    from pautdx_torch.mesh.launch import launch
     from pautdx_torch.models.vision.dfine import DFine
     from pautdx_torch.models.vision.hgnet import HGNetV2
     from pautdx_torch.models.vision.temporal_dfine import TemporalDFine
@@ -87,7 +91,11 @@ def test_entry_points_raise_without_a_card():
                  lambda: make_frame_slab(1, 2),
                  lambda: DetectorEndpoint(lambda x: x),
                  lambda: build_temporal_model(),
-                 lambda: TemporalDFine(temporal_serving_config())):
+                 lambda: TemporalDFine(temporal_serving_config()),
+                 lambda: make_mesh(),
+                 lambda: launch(max, 2, args=(1, 2)),
+                 lambda: dryrun_multichip(4),
+                 lambda: dryrun_main(["4"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -19,7 +19,9 @@
   carry, which its scan cannot carry in float64; the test gives them the
   same zeros in float64.
 - ``train_signal`` -> ``restore_signal_model`` -> ``SignalEndpoint`` on
-  two tiny JSON volumes; ``HybridPhases`` freezing as
+  two tiny JSON volumes; ``dp=True`` in one gloo rank (the one-process run
+  bit for bit) and over two spawned ranks (the state returned is rank 0's
+  last checkpoint); ``HybridPhases`` freezing as
   ``tests/test_recipes_phases.py`` checks it; ``SNRCurriculum``'s fresh
   plateau controller a stage.
 """
@@ -51,6 +53,8 @@ from pautdx_torch.train.optim import (
     ReduceLROnPlateau, cosine_schedule, label_params, make_optimizer,
 )
 from pautdx_torch.train.recipes import RECIPES, HybridPhases, SNRCurriculum
+from pautdx_torch.train import signal as signal_train
+from pautdx_torch.train.checkpoint import CheckpointManager
 from pautdx_torch.train.signal import (
     recipe_optimizer, restore_signal_model, train_signal,
 )
@@ -151,14 +155,49 @@ def test_train_signal_restores_into_the_endpoint(runs):
     assert got.shape == (2, 8)
 
 
-def test_train_signal_dp_and_shape_errors(volumes, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_signal(volumes, str(tmp_path), dp=True, device="cpu")
+def test_train_signal_dp_and_shape_errors(volumes, tmp_path, runs):
+    # dp=True on the CPU: one gloo rank, the run of seed 0 bit for bit
+    _, state = train_signal(volumes, str(tmp_path / "dp"), epochs=2,
+                            batch_size=4, seq_len=8, seed=0, dp=True,
+                            device="cpu", log=lambda m: None)
+    want = runs["a"][2]
+    got = state.model.state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="signal_length"):
         train_signal(volumes, str(tmp_path), seq_len=8, signal_length=360,
                      device="cpu")
     with pytest.raises(ValueError, match="no batch"):
         train_signal(volumes, str(tmp_path), device="cpu")   # seq_len 50
+
+
+def _equal_trees(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_equal_trees(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_equal_trees, a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def test_train_signal_dp_over_spawned_ranks_returns_rank_0s_run(volumes,
+                                                                tmp_path):
+    """dp over two spawned gloo ranks, as over two cards: the state
+    returned is rank 0's last checkpoint, its trained optimizer included,
+    with the history rank 0 wrote."""
+    out = str(tmp_path / "dp2")
+    kw = dict(data_dir=volumes, out=out, model="HybridBinary",
+              recipe="detection", epochs=2, batch_size=4, seq_len=8,
+              defect_focused=False, signal_length=320, seed=0)
+    trainer, state = signal_train._train_dp(kw, torch.device("cpu"),
+                                            lambda m: None, n=2)
+    saved, meta = CheckpointManager(out).restore("latest")
+    assert meta["step"] == 1 and trainer.history["epoch"] == [0, 1]
+    assert all(np.isfinite(trainer.history["train_bce"]))
+    assert state.step == saved["step"] > 0
+    assert _equal_trees(state.state_dict(), saved)
+    assert state.optimizer.count > 0
 
 
 # ---------------------------------------------------------------------------
