@@ -30,7 +30,10 @@ Phases, one line each, in order; any failure exits non-zero:
 3. attention kernel vs plain at (128, 8, 400, 16), f32 (3xTF32 on the
    tensor cores) and bf16 (tensor cores), and at a ragged N=37;
 4. gather kernel vs plain at (128, 2000, 128) x 1200 taps, bf16 and f32,
-   indices out of range included: bit for bit;
+   indices out of range included: bit for bit; then the one-hot forward's
+   tile plan where it stretches (a b4 denoising step, a ragged last tile,
+   a pile-up), and the weighted forward at b16, b4 and a 20,000-row table
+   (within 1e-5);
 5. the full model in f32 at batch 4, once through the kernels and once
    through the plain versions, detection sets matched by assignment; each
    forward must launch the attention kernel once and the gather thrice;
@@ -4325,6 +4328,39 @@ def main() -> None:
               f"gather {dtype}: kernel differs from the plain version")
     print(f"[4 gather] kernel == plain bit for bit at ({BATCH}, {L}, 128) x "
           f"{T} taps, bf16 and f32, indices -3 and L+5 clamped", flush=True)
+    # the one-hot forward's tile plan where it stretches: a denoising
+    # step's b4, a ragged last tile, every tap on one row; the weighted
+    # forward at the training shapes and a tall table; inputs from a
+    # generator of their own, so later phases see the same
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for B4, T4, dtype, pile_up in ((4, 2736, torch.float32, False),
+                                   (4, 1201, torch.bfloat16, False),
+                                   (4, 2736, torch.float32, True)):
+        flat = torch.randn((B4, L, 128), generator=gen4, device=dev).to(dtype)
+        idx = torch.randint(-3, L + 3, (B4, T4), generator=gen4, device=dev,
+                            dtype=torch.int32)
+        if pile_up:
+            idx.fill_(L // 2)
+        check(torch.equal(gather.onehot_gather(flat, idx),
+                          gather.onehot_gather_reference(flat, idx)),
+              f"gather ({B4}, {L}, 128) x {T4} {dtype}"
+              f"{' pile-up' if pile_up else ''}: kernel differs")
+        cases.append(f"one-hot ({B4}, {T4}){' pile-up' if pile_up else ''}")
+    for B4, L4, T4 in ((16, L, T), (4, L, 2736), (2, 20000, 500)):
+        flat = torch.randn((B4, L4, 128), generator=gen4, device=dev)
+        idx = torch.randint(-3, L4 + 3, (B4, T4, 4), generator=gen4,
+                            device=dev, dtype=torch.int32)
+        w = torch.rand((B4, T4, 4), generator=gen4, device=dev)
+        with torch.no_grad():
+            err = within(gather.weighted_gather(flat, idx, w),
+                         gather.weighted_gather_reference(flat, idx, w))
+        check(err <= GATHER_TOL, f"weighted gather ({B4}, {L4}, 128) x "
+              f"({T4}, 4): relative error {err:.3g}")
+        cases.append(f"weighted ({B4}, {L4}) x {T4} {err:.2g}")
+    print("[4 gather] forwards: one-hot bit for bit, weighted within "
+          f"{GATHER_TOL} of the largest magnitude: " + "; ".join(cases),
+          flush=True)
 
     # 5. the full model, f32, kernels vs plain versions
     model = fold_uint8_stem(DFine(serving_config(), device=dev, seed=0))

@@ -1,6 +1,7 @@
 """A/B of pautdx_torch's CUDA kernels between checkouts, on one card.
 
     python3 kernel_ab.py times [--tree DIR]
+    python3 kernel_ab.py tiles
     python3 kernel_ab.py sass [--match NAME] [--out DIR] SRC.cu [SRC.cu ...]
     python3 kernel_ab.py mma
     python3 kernel_ab.py phases
@@ -12,10 +13,19 @@ device time per call from ``torch.profiler`` (``chip_smoke.device_ms``,
 the method of ``chip_smoke.py``'s kernel records), with L2 flushed before
 each call and without; then the int8 convolution over one forward of each
 int8 serving path (its 25 or 40 site shapes, ``INT8_SITES``, each timed
-once and weighted by its sites). The timing code and the inputs are this
-checkout's whatever DIR is, so two checkouts run in turns in one call
-(parent, change, change, parent) are measured alike. The last line is one
-JSON object.
+once and weighted by its sites). It prints a digest (sha256) of each
+call's output, so that one call shows two trees' outputs bit-identical
+(all but the backwards' d_flat, whose atomics sum in an order that
+changes from run to run), and, where DIR's one-hot gather plans forward
+tiles (``gather.forward_tiles``), the device time of an empty kernel
+launched at both gather forwards' grids of a denoising step's b4: the
+floor of those launches.
+The timing code and the inputs are this checkout's whatever DIR is, so
+two checkouts run in turns in one call (parent, change, change, parent)
+are measured alike. The last line is one JSON object.
+
+``tiles`` times the one-hot gather forward at the paths' shapes with other
+plans (``TILE_PLANS``) in place of the plan's, beside the plan's own.
 
 ``sass`` compiles each source with the port's nvcc flags to a cubin and
 prints, for every kernel whose name holds NAME, its instruction count and
@@ -32,14 +42,14 @@ one warp, the latency of one product.
 around each phase of the dense wgmma kernel's consumers (waiting for a
 TMA box, quantizing, the barrier, issuing and waiting for wgmma, the
 epilogue) and prints each phase's share at the heaviest dense site
-shapes. All four need the CUDA toolkit; ``times``, ``mma`` and ``phases``
-need a card.
+shapes. All need the CUDA toolkit, and all but ``sass`` a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import re
@@ -232,7 +242,7 @@ def int8_site_call(torch, dev, site, batch: int, dtype, seed: int):
 
 def kernel_calls(torch, dev) -> dict:
     """name -> a call of one kernel wrapper at a main path's shape."""
-    from pautdx_torch.ops import attention, gather, masks, suppress
+    from pautdx_torch.ops import attention, deformable, gather, masks, suppress
     from pautdx_torch.ops.nms import box_iou_matrix
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -292,6 +302,29 @@ def kernel_calls(torch, dev) -> dict:
         calls["weighted_gather_backward" + suffix] = (
             lambda tf=tf, ti=ti, tw=tw, tg=tg:
             gather.weighted_gather_backward(tf, ti, tw, tg))
+    # the weighted gather's three training shapes again with the path's
+    # corners: bilinear taps (ops/deformable.bilinear_taps) of uniform
+    # random points on a 40 x 40 and a 20 x 20 level (2,000 rows), four
+    # points on each, so that corners (0, 0), (0, 1) and (1, 0), (1, 1) lie
+    # on consecutive rows but at the grid's edges
+    for suffix, B, T in (("", 16, 1200), ("_denoising", 4, 2736),
+                         ("_temporal_train", 50, 1200)):
+        loc = rand(B, T // 8, 8, 2)
+        bi, bw = deformable.bilinear_taps(((40, 40), (20, 20)), loc, (4, 4))
+        bf = randn(B, 2000, 128)
+        bi = bi.reshape(B, T, 4).contiguous()
+        bw = bw.reshape(B, T, 4).contiguous()
+        calls["weighted_gather_bilinear" + suffix] = (
+            lambda bf=bf, bi=bi, bw=bw: gather.weighted_gather(bf, bi, bw))
+    # the one-hot gather at a denoising step (f32, b4, 342 queries x 8
+    # points) and at a temporal chunk (bf16, one 50-frame sequence)
+    for suffix, B, T, dtype in (("_denoising", 4, 2736, torch.float32),
+                                ("_temporal", 50, 1200, torch.bfloat16)):
+        ot = randn(B, 2000, 128, dtype=dtype)
+        oi = torch.randint(-3, 2003, (B, T), generator=gen, device=dev,
+                           dtype=torch.int32)
+        calls["onehot_gather" + suffix] = (
+            lambda ot=ot, oi=oi: gather.onehot_gather(ot, oi))
     # the int8 convolution at the serving paths' heaviest site shapes
     for path, batch, dtype in INT8_PATHS:
         for name, i in INT8_HEAVY[path].items():
@@ -318,6 +351,70 @@ def int8_forward_ms(torch, dev, chip_smoke) -> dict:
     return out
 
 
+def digest(out) -> str:
+    """sha256 of a call's output tensors' bytes, the first 16 hex digits."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+_EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int gx, int gy, int threads, int smem,
+                            void* stream) {
+  if (smem > 47 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  empty_kernel<<<dim3(gx, gy), threads, smem, (cudaStream_t)stream>>>();
+  return cudaGetLastError();
+}
+"""
+
+
+def empty_floor(torch, chip_smoke, gather) -> dict:
+    """Device ms of an empty kernel launched as each gather forward launches
+    at a denoising step's b4, (4, 2000, 128) f32 x 2736 taps: the one-hot
+    plan's grid, threads and dynamic shared memory, and the weighted
+    forward's warp-a-tap grid (``grid_for`` in ``weighted_gather.cu``). The
+    launch and block-scheduling floor of those rows."""
+    import ctypes
+
+    from pautdx_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, "e.cu"), os.path.join(tmp, "e.so")
+        with open(src, "w") as f:
+            f.write(_EMPTY_SRC)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                       check=True, capture_output=True, text=True)
+        fn = ctypes.CDLL(lib).empty_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    plan = gather.forward_tiles(4, 2736, 512, props.multi_processor_count,
+                                props.shared_memory_per_multiprocessor)
+    out = {}
+    for name, blocks, threads, smem in (
+            ("onehot_gather_denoising", plan.blocks, 32, plan.smem),
+            ("weighted_gather_denoising", min(-(-4 * 2736 // 8), 132 * 16),
+             256, 0)):
+
+        def run(blocks=blocks, threads=threads, smem=smem):
+            chip_smoke.check(fn(blocks, 1, threads, smem,
+                                torch.cuda.current_stream().cuda_stream) == 0,
+                             "empty kernel launch failed")
+
+        out[name] = dict(blocks=blocks, threads=threads, smem=smem,
+                         ms=chip_smoke.device_ms(run))
+    return out
+
+
 def times(tree: str) -> None:
     import chip_smoke  # this checkout's timing method, before DIR's package
 
@@ -336,6 +433,11 @@ def times(tree: str) -> None:
     _build.build()
     calls = kernel_calls(torch, torch.device("cuda"))
     out = {"tree": os.path.abspath(tree), "card": chip_smoke.smi_line()}
+    with torch.no_grad():
+        out["digest"] = {name: digest(fn()) for name, fn in calls.items()}
+    from pautdx_torch.ops import gather
+    if hasattr(gather, "forward_tiles"):
+        out["empty_floor"] = empty_floor(torch, chip_smoke, gather)
     flush = chip_smoke.FLUSH_BYTES
     with torch.no_grad():
         for mode, nbytes in (("flushed", flush), ("warm", 0)):
@@ -348,12 +450,63 @@ def times(tree: str) -> None:
                                               chip_smoke)
     for name in calls:
         print(f"{name}: device ms per call, L2 flushed "
-              f"{out['flushed'][name]:.4f}, warm {out['warm'][name]:.4f}",
-              flush=True)
+              f"{out['flushed'][name]:.4f}, warm {out['warm'][name]:.4f}; "
+              f"output sha256 {out['digest'][name]}", flush=True)
+    for name, r in out.get("empty_floor", {}).items():
+        print(f"empty kernel at {name}'s grid, {r['blocks']} blocks of "
+              f"{r['threads']} threads, {r['smem']} B shared: device ms "
+              f"{r['ms']:.4f}", flush=True)
     for path, sums in out["int8_forward"].items():
         print(f"int8 convolutions over one {path} forward: device ms, L2 "
               f"flushed, " + ", ".join(f"{k} {v:.4f}"
                                        for k, v in sums.items()), flush=True)
+    print(json.dumps(out))
+
+
+# the one-hot forward's records of ``kernel_calls`` that ``tiles`` times,
+# and the plans (taps a tile, stages) it times in place of the plan's
+GATHER_FORWARDS = ("onehot_gather", "onehot_gather_denoising",
+                   "onehot_gather_temporal")
+TILE_PLANS = ((8, 1), (16, 1), (32, 1), (8, 2), (16, 2), (32, 2), (64, 1))
+
+
+def tiles() -> None:
+    """Device ms per call (L2 flushed) of the one-hot forward at the paths'
+    shapes with each plan (taps a tile, stages) of ``TILE_PLANS`` in place
+    of the plan's, set through ``gather``'s plan constants, and with the
+    plan's own; each plan's output must equal the plan's own bit for
+    bit."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from pautdx_torch.ops import _build, gather
+
+    chip_smoke.check(torch.cuda.is_available(), "needs a card")
+    _build.build(["onehot_gather"])
+    calls = kernel_calls(torch, torch.device("cuda"))
+    own = (gather.MAX_TILE_TAPS, gather.MIN_TILE_TAPS, gather.STAGES)
+    print(f"card {chip_smoke.smi_line()}", flush=True)
+    out = {}
+    with torch.no_grad():
+        for name in GATHER_FORWARDS:
+            row = {"plan": chip_smoke.device_ms(calls[name])}
+            want = calls[name]()
+            for tt, st in TILE_PLANS:
+                try:
+                    (gather.MAX_TILE_TAPS, gather.MIN_TILE_TAPS,
+                     gather.STAGES) = (tt, tt, st)
+                    chip_smoke.check(torch.equal(calls[name](), want),
+                                     f"{name}, {tt}x{st}: the output "
+                                     f"differs from the plan's")
+                    row[f"{tt}x{st}"] = chip_smoke.device_ms(calls[name])
+                finally:
+                    (gather.MAX_TILE_TAPS, gather.MIN_TILE_TAPS,
+                     gather.STAGES) = own
+            out[name] = row
+            print(f"{name}: device ms per call, L2 flushed, by plan (taps a "
+                  f"tile x stages): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in row.items()), flush=True)
     print(json.dumps(out))
 
 
@@ -589,6 +742,7 @@ def main() -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("times")
     t.add_argument("--tree", default=HERE)
+    sub.add_parser("tiles")
     s = sub.add_parser("sass")
     s.add_argument("--match", default="")
     s.add_argument("--out", default="")
@@ -598,6 +752,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.cmd == "times":
         times(args.tree)
+    elif args.cmd == "tiles":
+        tiles()
     elif args.cmd == "sass":
         sass(args.sources, args.match, args.out)
     elif args.cmd == "phases":

@@ -36,7 +36,13 @@
 // the 4-element pieces l, l + 32, ... of the row (a float4, or 8 bytes of
 // bf16; C = 128: one piece a lane), so a warp reads and writes whole rows,
 // coalesced; the corner rows shared by neighbouring taps come from the
-// 50 MB L2.
+// 50 MB L2. At a denoising step's b4 (T = 2736) the bound is about 2.6 us,
+// a chain of DRAM latencies (indices, rows, stores) more than bytes. A
+// design that brings a tile's corner rows into shared memory by bulk
+// asynchronous copies (cp.async.bulk, as onehot_gather.cu does) was
+// slower than this one at every path shape on an H100: an SM's copy
+// engine takes about one bulk copy every 25 ns whatever its size, while
+// these plain loads reach L2's rate (PERF.md, section 6).
 //
 // Backward, d_flat (scatter_tile): one block per (row range, channel slice,
 // frame) keeps that tile of the frame's d_flat, rows x cs f32, in dynamic

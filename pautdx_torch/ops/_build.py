@@ -3,8 +3,8 @@
 Each ``pautdx_torch/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``
 into its own shared library under ``build/pautdx_torch/`` at the root of the
 checkout, at first use. The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale one is never
-loaded. All missing libraries are compiled by parallel ``nvcc`` processes.
+source, the ``csrc/*.cuh`` headers and the flags, so an edited source or
+header is rebuilt and a stale one is never loaded. All missing libraries are compiled by parallel ``nvcc`` processes.
 A failed build raises with the compiler's output; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -48,7 +48,10 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the headers beside the sources, which any of them may include
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

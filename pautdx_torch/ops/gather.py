@@ -12,6 +12,13 @@ PyTorch versions and their launch counters.
   decoder). It is a ``torch.autograd.Function`` whose forward and backward
   both launch ``csrc/weighted_gather.cu`` on the card.
 
+The one-hot forward cuts the taps into tiles of one frame's taps
+(:func:`forward_tiles`), which a persistent grid walks: a block brings a
+tile's rows into shared memory by Hopper's bulk asynchronous copies, all in
+flight together, and writes the tile out from there by one bulk copy. The
+weighted forward runs one warp a tap, its corner rows by plain loads. The
+backwards tile the table instead (:func:`scatter_tiles`).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The kernels of ``weighted_gather.cu`` take
 float32 and bfloat16 tables and gradients (w and d_w either on their own),
@@ -25,7 +32,8 @@ else.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -40,12 +48,23 @@ WEIGHTED_BACKWARD_LAUNCHES = 0
 # widest channel slice of a backward tile
 SMEM_BYTES = 232448
 MAX_SLICE = 16
+# the one-hot forward's plan (:func:`forward_tiles`): the bytes of a tile's
+# buffer at most, unless one row alone needs more; the most and the fewest
+# taps of a tile; the tiles a launch should have for each SM at least, below
+# which tiles are halved; the tiles a block keeps in flight and the blocks
+# an SM holds at most (the best of ``kernel_ab.py tiles`` on an H100)
+TILE_BYTES = 73728
+MAX_TILE_TAPS = 32
+MIN_TILE_TAPS = 4
+FILL_PER_SM = 8
+STAGES = 2
+BLOCKS_PER_SM = 16
 # the element types of weighted_gather.cu's kernels, as their C codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# flat, idx, out, B, L, T, row bytes, stream
+# flat, idx, out, B, L, T, row bytes, tt, cb, stages, blocks, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-             + [ctypes.c_longlong, ctypes.c_void_p])
+             + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # flat, idx, w, out, B, L, T, K, C, dtype, wdtype, stream
 _WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
@@ -67,6 +86,49 @@ def scatter_tiles(L: int, C: int) -> Tuple[int, int]:
     cs = max(c for c in range(4, min(C, MAX_SLICE) + 1, 4) if C % c == 0)
     ranges = -(-L // (SMEM_BYTES // (4 * cs)))
     return cs, -(-L // ranges)
+
+
+class ForwardPlan(NamedTuple):
+    """The launch of the one-hot forward: tiles of ``tt`` taps of one frame
+    by ``cb`` bytes of each of their rows, ``tiles`` of them, walked by
+    ``blocks`` blocks (block i takes tiles i, i + blocks, ...) that keep
+    ``stages`` tiles each in flight in ``smem`` bytes of shared memory. Tile
+    (b * ceil(T / tt) + tile of T) * pieces + piece of the row."""
+    tt: int
+    cb: int
+    stages: int
+    blocks: int
+    tiles: int
+    smem: int
+
+
+def forward_tiles(B: int, T: int, row_bytes: int, sms: int,
+                  sm_smem: int) -> ForwardPlan:
+    """The plan of the one-hot forward for B frames of T taps of
+    ``row_bytes``-byte rows (a multiple of 16) on a card of ``sms`` SMs
+    with ``sm_smem`` bytes of shared memory each. A row is cut into pieces
+    of cb bytes only where it alone outgrows ``TILE_BYTES``; a tile holds as
+    many taps as fit it, at most ``MAX_TILE_TAPS``, halved while the launch
+    has fewer than ``FILL_PER_SM`` tiles an SM, down to ``MIN_TILE_TAPS``;
+    a block keeps ``STAGES`` tiles in flight where they fit, and the grid
+    is as many blocks as the SMs hold, at most one a tile."""
+    cb = min(row_bytes, TILE_BYTES)
+    pieces = -(-row_bytes // cb)
+    tt = max(1, min(MAX_TILE_TAPS, TILE_BYTES // cb))
+    while tt > MIN_TILE_TAPS and B * -(-T // tt) * pieces < FILL_PER_SM * sms:
+        tt = max(MIN_TILE_TAPS, tt // 2)
+    tiles = B * -(-T // tt) * pieces
+    stages = max(1, min(STAGES, (SMEM_BYTES - 1024) // (tt * cb)))
+    smem = stages * tt * cb
+    per_sm = min(BLOCKS_PER_SM, max(1, sm_smem // (smem + 1024)))
+    return ForwardPlan(tt, cb, stages, min(tiles, sms * per_sm), tiles, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_limits(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory bytes of one) of card ``index``."""
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, p.shared_memory_per_multiprocessor
 
 
 def onehot_gather_reference(flat: torch.Tensor,
@@ -151,8 +213,9 @@ def _onehot_forward(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          _ARGTYPES)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
+        plan = forward_tiles(B, T, row_bytes, *_sm_limits(flat.device.index))
         rc = fn(flat.data_ptr(), idx.data_ptr(), out.data_ptr(), B, L, T,
-                row_bytes, stream)
+                row_bytes, plan.tt, plan.cb, plan.stages, plan.blocks, stream)
         LAUNCHES += 1
     _build.check(rc, "onehot_gather")
     return out
@@ -175,9 +238,10 @@ class _OnehotGather(torch.autograd.Function):
 def onehot_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """flat (B, L, C) of any 2- or 4-byte dtype; idx (B, T) int32 ->
     (B, T, C) rows, copied bit for bit. Indices are clipped to [0, L-1] as
-    the TPU kernel clips them. The kernel copies 16-byte pieces, so on the
-    card a row must be a multiple of 16 bytes and ``flat`` 16-byte aligned
-    (C=128 on the serving path: 256-byte rows).
+    the TPU kernel clips them. The kernel moves rows by bulk copies of
+    16-byte multiples, so on the card a row must be a multiple of 16 bytes
+    and ``flat`` 16-byte aligned (C=128 on the serving path: 256-byte
+    rows).
 
     Differentiable in ``flat``: the gradient of a row is the sum of the
     output gradients of the taps that read it, at the clipped index (on the

@@ -1,6 +1,6 @@
 """The gradient of pautdx_torch's one-hot row gather, the bf16 forms of
 both gathers' plain versions and backwards, held to the JAX package on the
-CPU, and the tile plan of the gathers' backward kernels.
+CPU, and the tile plans of the gathers' forward and backward kernels.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 Pallas kernel runs in interpret mode. The backward kernel itself is held to
@@ -132,6 +132,73 @@ def test_scatter_tiles_cover_the_table_once(L, C):
             hits[r0:r0 + rows, c0:c0 + cs] += 1
     assert (hits == 1).all()
     assert (rows == L) == (L * cs * 4 <= 227 * 1024)
+
+
+def _forward_hits(B, T, row_bytes, plan):
+    """How often the one-hot forward's blocks take each (frame, tap, piece
+    of the row), walking the tiles as the kernel does: block i takes tiles
+    i, i + blocks, ..., tile (b * ceil(T / tt) + tile of T) * pieces +
+    piece."""
+    pieces = -(-row_bytes // plan.cb)
+    per_frame = -(-T // plan.tt) * pieces
+    assert plan.tiles == B * per_frame
+    hits = np.zeros((B, T, pieces), np.int32)
+    walks = -(-plan.tiles // plan.blocks)  # tiles of the longest walk
+    ids = (np.arange(plan.blocks)[:, None]
+           + plan.blocks * np.arange(walks)[None, :]).ravel()
+    b, r = np.divmod(ids[ids < plan.tiles], per_frame)
+    ti, piece = np.divmod(r, pieces)
+    for db in range(plan.tt):              # every tap of each tile
+        t = ti * plan.tt + db
+        keep = t < T
+        np.add.at(hits, (b[keep], t[keep], piece[keep]), 1)
+    return hits
+
+
+# (SMs, shared memory bytes of one): an H100 SXM and an H100 PCIe
+_CARDS = [(132, 233472), (114, 233472)]
+
+
+@pytest.mark.parametrize("sms,sm_smem", _CARDS)
+@pytest.mark.parametrize("row_bytes", [256, 512])
+@pytest.mark.parametrize("B,T", [(128, 1200), (4, 2736), (16, 1200),
+                                 (50, 1200), (16, 2736), (3, 1), (3, 37),
+                                 (4, 1201), (70000, 3)])
+def test_forward_tiles_cover_every_tap_once(B, T, row_bytes, sms, sm_smem):
+    """The one-hot forward's plan at the paths' (B, T) (serving b128, the
+    denoising step's b4 and b16, training b16, a temporal b50), ragged T
+    and more frames than a grid's 65,535, for bf16 and f32 rows of 128
+    channels, on cards of 132 and 114 SMs: every (frame, tap) is one
+    block's exactly once, the grid keeps CUDA's limits (one dimension of at
+    most 2**31 - 1 blocks) and the SMs' room, a block's buffers fit its
+    shared memory, and the launch has a few tiles for every SM wherever
+    tiles can shrink."""
+    plan = gather.forward_tiles(B, T, row_bytes, sms, sm_smem)
+    assert plan.cb == row_bytes and 1 <= plan.tt <= gather.MAX_TILE_TAPS
+    assert plan.tt * plan.cb <= gather.TILE_BYTES and plan.stages >= 1
+    assert plan.smem == plan.stages * plan.tt * plan.cb
+    assert plan.smem <= gather.SMEM_BYTES - 1024
+    assert 1 <= plan.blocks <= min(plan.tiles, 2**31 - 1,
+                                   sms * gather.BLOCKS_PER_SM)
+    assert plan.blocks == plan.tiles or \
+        plan.blocks // sms * (plan.smem + 1024) <= sm_smem
+    assert (_forward_hits(B, T, row_bytes, plan) == 1).all()
+    assert plan.tiles >= gather.FILL_PER_SM * sms or \
+        plan.tt <= gather.MIN_TILE_TAPS
+
+
+@pytest.mark.parametrize("row_bytes", [73744, 131072, 1048576])
+def test_forward_tiles_cut_rows_that_outgrow_a_tile(row_bytes):
+    """A row that alone outgrows ``TILE_BYTES`` (just past it, 128 KB, 1
+    MB) is cut into pieces of 16 bytes' multiples that cover it once, one
+    tap a tile; every block's buffers fit 227 KB."""
+    B, T = 3, 37
+    plan = gather.forward_tiles(B, T, row_bytes, *_CARDS[0])
+    assert plan.cb % 16 == 0 and 0 < plan.cb < row_bytes
+    assert plan.tt == 1 and plan.smem <= gather.SMEM_BYTES - 1024
+    assert (_forward_hits(B, T, row_bytes, plan) == 1).all()
+    starts = np.arange(0, row_bytes, plan.cb)   # the pieces tile the row
+    assert starts[-1] < row_bytes <= starts[-1] + plan.cb
 
 
 def _bf16(a):

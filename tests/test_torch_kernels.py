@@ -163,13 +163,25 @@ def test_attention_kernel_refuses_what_it_cannot_take(cuda):
     assert attention.LAUNCHES == before
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-def test_gather_kernel_matches_plain(cuda, dtype):
-    """Bit for bit, indices out of range clamped."""
-    L = 50
-    flat = _randn((3, L, 128), 1, cuda, getattr(torch, dtype))
+@pytest.mark.parametrize("dtype,shape,pile_up", [
+    ("float32", (3, 50, 128, 37), False),
+    ("bfloat16", (3, 50, 128, 37), False),
+    ("float16", (3, 50, 128, 37), False),
+    ("float32", (4, 2000, 128, 2736), False),
+    ("bfloat16", (50, 2000, 128, 1200), False),
+    ("bfloat16", (4, 2000, 128, 1201), False),
+    ("float32", (4, 2000, 128, 2736), True)])
+def test_gather_kernel_matches_plain(cuda, dtype, shape, pile_up):
+    """Bit for bit, indices out of range clamped: (B, L, C) x T at T=37,
+    a denoising step's (4, 2000, 128) f32 x 2736 taps, a temporal chunk's
+    (50, 2000, 128) bf16 x 1200, a ragged T=1201 (the last tile short), and
+    a pile-up of every tap of a frame on one row."""
+    B, L, C, T = shape
+    flat = _randn((B, L, C), 1, cuda, getattr(torch, dtype))
     idx = torch.from_numpy(np.random.default_rng(2).integers(
-        -3, L + 5, (3, 37)).astype(np.int32)).to(cuda)
+        -3, L + 5, (B, T)).astype(np.int32)).to(cuda)
+    if pile_up:
+        idx.fill_(L // 2)
     before = gather.LAUNCHES
     got = gather.onehot_gather(flat, idx)
     torch.cuda.synchronize()
@@ -374,7 +386,8 @@ def _weighted_inputs(B, L, C, T, seed, device):
     ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
     ((2, 30, 8, 5), False), ((2, 20000, 128, 500), False),
     ((4, 2000, 128, 1200), True), ((16, 2000, 128, 2736), False),
-    ((4, 2000, 128, 2736), False), ((50, 2000, 128, 1200), False)])
+    ((4, 2000, 128, 2736), False), ((50, 2000, 128, 1200), False),
+    ((4, 2000, 128, 1201), False), ((3, 50, 12, 37), False)])
 def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     """Forward and both gradients against the plain version and its
     autograd, to 1e-5 of the largest magnitude: the forward sums four
@@ -383,9 +396,9 @@ def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
     128) x 1200 taps is the training path's, x 2736 its taps with a
     denoising group of 192 queries (150 + 192 queries x 8 points), at b16
     and at b4, and (50, 2000, 128) x 1200 a temporal v3 step's, one
-    50-frame sequence as the batch; T=37 and C=8 are ragged;
+    50-frame sequence as the batch; T=37, T=1201 and C=8 are ragged;
     L=20000 splits the backward's rows into ranges; the pile-up sends
-    every corner of a frame to one row."""
+    every corner of a frame to one row; C=12 gives 48-byte rows."""
     flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
     if pile_up:
         idx.fill_(shape[1] // 2)
@@ -416,14 +429,15 @@ def test_weighted_gather_kernel_matches_plain(cuda, shape, pile_up):
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,pile_up", [
     ((16, 2000, 128, 1200), False), ((3, 50, 128, 37), False),
-    ((2, 20000, 128, 500), False), ((4, 2000, 128, 1200), True)])
+    ((2, 20000, 128, 500), False), ((4, 2000, 128, 1200), True),
+    ((3, 50, 4, 37), False), ((4, 2000, 4, 1201), True)])
 def test_weighted_gather_kernel_matches_plain_bf16(cuda, shape, pile_up,
                                                    w_dtype):
     """A bf16 table: forward, d_flat and d_w through autograd and the
     backward kernels alone against the plain versions (w rounded to bf16,
     f32 sums, each output rounded once), to one bf16 ulp of each output's
     largest magnitude plus 1e-5 of it for the reordered f32 sums. d_w comes
-    back in w's dtype."""
+    back in w's dtype. C = 4 gives 8-byte rows, one 8-byte piece a row."""
     flat, idx, w = _weighted_inputs(*shape, seed=sum(shape), device=cuda)
     if pile_up:
         idx.fill_(shape[1] // 2)
@@ -447,6 +461,29 @@ def test_weighted_gather_kernel_matches_plain_bf16(cuda, shape, pile_up,
             torch.bfloat16 else 0.0
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=ulp + 1e-5 * peak)
+
+
+@pytest.mark.parametrize("case", ["frames", "rows"])
+def test_gather_forwards_past_a_grid_and_a_tile(cuda, case):
+    """The forward kernels at their edges: 70,000 frames, more than a
+    grid's 65,535, and wide rows (a 128 KB one-hot row, which outgrows a
+    tile and is cut into pieces; four 32 KB corner rows of a tap). The
+    one-hot gather bit for bit, the weighted gather to 1e-5 of the largest
+    magnitude; one launch each."""
+    B, L, C, T = (70000, 2, 8, 3) if case == "frames" else (2, 5, 8192, 7)
+    flat, idx, w = _weighted_inputs(B, L, C, T, seed=7, device=cuda)
+    one = _randn((B, L, 4 * C), 8, cuda, torch.float32)
+    before = (gather.LAUNCHES, gather.WEIGHTED_LAUNCHES)
+    got_one = gather.onehot_gather(one, idx[..., 0].contiguous())
+    got = gather.weighted_gather(flat, idx, w)
+    torch.cuda.synchronize()
+    assert (gather.LAUNCHES, gather.WEIGHTED_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_one, gather.onehot_gather_reference(
+        one, idx[..., 0].contiguous()))
+    want = gather.weighted_gather_reference(flat, idx, w)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def test_weighted_gather_kernel_refuses_what_it_cannot_take(cuda):
