@@ -32,8 +32,9 @@ Phases, one line each, in order; any failure exits non-zero:
 4. gather kernel vs plain at (128, 2000, 128) x 1200 taps, bf16 and f32,
    indices out of range included: bit for bit; then the one-hot forward's
    tile plan where it stretches (a b4 denoising step, a ragged last tile,
-   a pile-up), and the weighted forward at b16, b4 and a 20,000-row table
-   (within 1e-5);
+   a pile-up), and the weighted forward at b16, b4 and a 20,000-row table,
+   and on the path's bilinear corners at b4 and b50 with the plan each
+   took (within 1e-5);
 5. the full model in f32 at batch 4, once through the kernels and once
    through the plain versions, detection sets matched by assignment; each
    forward must launch the attention kernel once and the gather thrice;
@@ -1156,6 +1157,9 @@ def gather_records(torch, dev, captured: dict, dcaptured, counts: dict,
     fwd_err = max_abs_err(got, want)
     bwd_err = max(max_abs_err(d_got[0], d_want[0]),
                   max_abs_err(d_got[1], d_want[1]))
+    plan = gather.weighted_plan(B, T, K, C * flat.element_size(),
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count)
     rows = torch.unique(idx.long().clamp(0, L - 1)
                         + L * torch.arange(B, device=dev)[:, None, None])
     table_bytes = rows.numel() * C * 4          # the rows the taps touch
@@ -1182,7 +1186,8 @@ def gather_records(torch, dev, captured: dict, dcaptured, counts: dict,
          lambda: gather.weighted_gather_reference(flat, idx, w),
          lambda: bag(table, bag_w),
          f"flat {tuple(flat.shape)}, idx/w {tuple(idx.shape)} f32, "
-         f"{rows.numel()} distinct rows of {B * L}; library: "
+         f"{rows.numel()} distinct rows of {B * L}; plan {plan.group} taps "
+         f"a group, {plan.blocks} blocks of {plan.warps} warps; library: "
          f"embedding_bag over bags of {K}"),
         ("weighted_gather_backward", 196, bwd_err,
          out_bytes + table_bytes + tap_bytes + B * L * C * 4
@@ -4358,6 +4363,25 @@ def main() -> None:
         check(err <= GATHER_TOL, f"weighted gather ({B4}, {L4}, 128) x "
               f"({T4}, 4): relative error {err:.3g}")
         cases.append(f"weighted ({B4}, {L4}) x {T4} {err:.2g}")
+    # the weighted forward on the path's corners: bilinear taps of uniform
+    # points on a 40 x 40 and a 20 x 20 level (2,000 rows), a denoising
+    # step's b4 and a temporal step's b50, with the plan each took
+    from pautdx_torch.ops.deformable import bilinear_taps
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B4, T4 in ((4, 2736), (50, T)):
+        loc = torch.rand((B4, T4 // 8, 8, 2), generator=gen4, device=dev)
+        idx, w = (t.reshape(B4, T4, 4).contiguous() for t in bilinear_taps(
+            ((40, 40), (20, 20)), loc, (4, 4)))
+        flat = torch.randn((B4, L, 128), generator=gen4, device=dev)
+        with torch.no_grad():
+            err = within(gather.weighted_gather(flat, idx, w),
+                         gather.weighted_gather_reference(flat, idx, w))
+        check(err <= GATHER_TOL, f"weighted gather, bilinear corners, "
+              f"({B4}, {L}, 128) x ({T4}, 4): relative error {err:.3g}")
+        plan = gather.weighted_plan(B4, T4, 4, 512, sms)
+        cases.append(f"weighted bilinear ({B4}, {L}) x {T4} {err:.2g}, plan "
+                     f"{plan.group} taps a group, {plan.blocks} blocks of "
+                     f"{plan.warps} warps on {sms} SMs")
     print("[4 gather] forwards: one-hot bit for bit, weighted within "
           f"{GATHER_TOL} of the largest magnitude: " + "; ".join(cases),
           flush=True)

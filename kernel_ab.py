@@ -2,6 +2,7 @@
 
     python3 kernel_ab.py times [--tree DIR]
     python3 kernel_ab.py tiles
+    python3 kernel_ab.py wplans
     python3 kernel_ab.py sass [--match NAME] [--out DIR] SRC.cu [SRC.cu ...]
     python3 kernel_ab.py mma
     python3 kernel_ab.py phases
@@ -27,10 +28,17 @@ are measured alike. The last line is one JSON object.
 ``tiles`` times the one-hot gather forward at the paths' shapes with other
 plans (``TILE_PLANS``) in place of the plan's, beside the plan's own.
 
+``wplans`` does the same for the weighted gather forward's six records
+(random and bilinear corners at b16, b4 and b50): every group size of
+``WPLAN_GROUPS`` with blocks of each of ``WPLAN_WARPS`` warps in place of
+the plan's (``gather.weighted_plan``), each output checked bit for bit
+against the plan's own.
+
 ``sass`` compiles each source with the port's nvcc flags to a cubin and
 prints, for every kernel whose name holds NAME, its instruction count and
-its opcodes by count (``cuobjdump -sass``); with ``--out`` it writes each
-full listing there.
+its opcodes by count (``cuobjdump -sass``), then its registers, static
+shared memory and spills from ptxas; with ``--out`` it writes each full
+listing there.
 
 ``mma`` times ``mma.sync`` alone on the card: TF32 m16n8k8 and bf16
 m16n8k16 with f32 accumulators, 8 warps a block and 4 or 2 blocks an SM
@@ -382,8 +390,9 @@ def empty_floor(torch, chip_smoke, gather) -> dict:
     """Device ms of an empty kernel launched as each gather forward launches
     at a denoising step's b4, (4, 2000, 128) f32 x 2736 taps: the one-hot
     plan's grid, threads and dynamic shared memory, and the weighted
-    forward's warp-a-tap grid (``grid_for`` in ``weighted_gather.cu``). The
-    launch and block-scheduling floor of those rows."""
+    forward's grid (``gather.weighted_plan``, or one warp a tap, at most
+    132 x 16 blocks of 8 warps, where DIR has no plan). The launch and
+    block-scheduling floor of those rows."""
     import ctypes
 
     from pautdx_torch.ops import _build
@@ -399,11 +408,16 @@ def empty_floor(torch, chip_smoke, gather) -> dict:
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
     plan = gather.forward_tiles(4, 2736, 512, props.multi_processor_count,
                                 props.shared_memory_per_multiprocessor)
+    if hasattr(gather, "weighted_plan"):
+        wplan = gather.weighted_plan(4, 2736, 4, 512,
+                                     props.multi_processor_count)
+        weighted = (wplan.blocks, 32 * wplan.warps)
+    else:
+        weighted = (min(-(-4 * 2736 // 8), 132 * 16), 256)
     out = {}
     for name, blocks, threads, smem in (
             ("onehot_gather_denoising", plan.blocks, 32, plan.smem),
-            ("weighted_gather_denoising", min(-(-4 * 2736 // 8), 132 * 16),
-             256, 0)):
+            ("weighted_gather_denoising", *weighted, 0)):
 
         def run(blocks=blocks, threads=threads, smem=smem):
             chip_smoke.check(fn(blocks, 1, threads, smem,
@@ -506,6 +520,70 @@ def tiles() -> None:
             out[name] = row
             print(f"{name}: device ms per call, L2 flushed, by plan (taps a "
                   f"tile x stages): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    print(json.dumps(out))
+
+
+# the weighted forward's records of ``kernel_calls`` that ``wplans`` times,
+# and the group sizes (taps a warp) and warps a block it times in place of
+# the plan's
+WEIGHTED_FORWARDS = tuple(f"weighted_gather{c}{s}" for c in ("", "_bilinear")
+                          for s in ("", "_denoising", "_temporal_train"))
+WPLAN_GROUPS = (1, 2, 3, 4, 6, 8)
+WPLAN_WARPS = (4, 8)
+
+
+def wplans() -> None:
+    """Device ms per call (L2 flushed) of the weighted forward at the
+    paths' shapes with each group size of ``WPLAN_GROUPS`` and blocks of
+    each of ``WPLAN_WARPS`` warps in place of the plan's, set through
+    ``gather``'s plan bounds, and with the plan's own (printed); each
+    output must equal the plan's own bit for bit."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from pautdx_torch.ops import _build, gather
+
+    chip_smoke.check(torch.cuda.is_available(), "needs a card")
+    _build.build(["weighted_gather"])
+    calls = kernel_calls(torch, torch.device("cuda"))
+    own = (gather.MIN_GROUP, gather.MAX_GROUP, gather.WEIGHTED_WARPS)
+    plan_of, taken = gather.weighted_plan, []
+
+    def recording_plan(*args):
+        taken.append(plan_of(*args))
+        return taken[-1]
+
+    print(f"card {chip_smoke.smi_line()}", flush=True)
+    out = {}
+    with torch.no_grad():
+        for name in WEIGHTED_FORWARDS:
+            gather.weighted_plan = recording_plan
+            try:
+                want = calls[name]()
+            finally:
+                gather.weighted_plan = plan_of
+            plan = taken[-1]
+            row = {f"plan {plan.group}x{plan.warps}":
+                   chip_smoke.device_ms(calls[name])}
+            for group in WPLAN_GROUPS:
+                for warps in WPLAN_WARPS:
+                    try:
+                        (gather.MIN_GROUP, gather.MAX_GROUP,
+                         gather.WEIGHTED_WARPS) = (group, group, warps)
+                        chip_smoke.check(torch.equal(calls[name](), want),
+                                         f"{name}, {group}x{warps}: the "
+                                         f"output differs from the plan's")
+                        row[f"{group}x{warps}"] = chip_smoke.device_ms(
+                            calls[name])
+                    finally:
+                        (gather.MIN_GROUP, gather.MAX_GROUP,
+                         gather.WEIGHTED_WARPS) = own
+            out[name] = dict(row, plan=plan._asdict())
+            print(f"{name}: plan {plan.group} taps a group, {plan.blocks} "
+                  f"blocks of {plan.warps} warps; device ms per call, L2 "
+                  f"flushed, by taps a group x warps a block: " + ", ".join(
                       f"{k} {v:.4f}" for k, v in row.items()), flush=True)
     print(json.dumps(out))
 
@@ -616,6 +694,7 @@ _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_]*
 
 def sass(sources: list, match: str, out_dir: str) -> None:
     sys.path.insert(0, HERE)
+    import chip_smoke
     from pautdx_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -625,8 +704,8 @@ def sass(sources: list, match: str, out_dir: str) -> None:
     for src in sources:
         with tempfile.TemporaryDirectory() as tmp:
             cubin = os.path.join(tmp, "k.cubin")
-            subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src],
-                           check=True, capture_output=True, text=True)
+            log = subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, src],
+                                 check=True, capture_output=True, text=True)
             listing = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                                      capture_output=True, text=True).stdout
         if out_dir:
@@ -643,6 +722,9 @@ def sass(sources: list, match: str, out_dir: str) -> None:
             print(f"{src} {fname}: {sum(ops.values())} instructions; "
                   + ", ".join(f"{k} {n}" for k, n in ops.most_common()),
                   flush=True)
+        for row in chip_smoke.ptxas_summary(log.stdout + log.stderr):
+            if match in row.split(":")[0]:
+                print(f"{src} ptxas {row}", flush=True)
 
 
 _MMA_SRC = r"""
@@ -743,6 +825,7 @@ def main() -> None:
     t = sub.add_parser("times")
     t.add_argument("--tree", default=HERE)
     sub.add_parser("tiles")
+    sub.add_parser("wplans")
     s = sub.add_parser("sass")
     s.add_argument("--match", default="")
     s.add_argument("--out", default="")
@@ -754,6 +837,8 @@ def main() -> None:
         times(args.tree)
     elif args.cmd == "tiles":
         tiles()
+    elif args.cmd == "wplans":
+        wplans()
     elif args.cmd == "sass":
         sass(args.sources, args.match, args.out)
     elif args.cmd == "phases":

@@ -32,17 +32,24 @@
 // writes 9.8 MB; the backward reads g (9.8 MB), those rows and idx/w and
 // writes d_flat (16.4 MB) and d_w.
 //
-// Forward: one warp per tap, in a grid-stride loop over taps. Lane l owns
-// the 4-element pieces l, l + 32, ... of the row (a float4, or 8 bytes of
-// bf16; C = 128: one piece a lane), so a warp reads and writes whole rows,
-// coalesced; the corner rows shared by neighbouring taps come from the
-// 50 MB L2. At a denoising step's b4 (T = 2736) the bound is about 2.6 us,
-// a chain of DRAM latencies (indices, rows, stores) more than bytes. A
-// design that brings a tile's corner rows into shared memory by bulk
-// asynchronous copies (cp.async.bulk, as onehot_gather.cu does) was
-// slower than this one at every path shape on an H100: an SM's copy
-// engine takes about one bulk copy every 25 ns whatever its size, while
-// these plain loads reach L2's rate (PERF.md, section 6).
+// Forward (weighted_gather_fwd): a warp owns a group of G consecutive taps,
+// whose G * K indices and weights its lanes load once, one coalesced load
+// each, and hand out by shuffles. Lanes take 16-byte pieces of a row (a
+// float4, or 8 bf16; 8 bytes for bf16 rows that are not a multiple of 16
+// bytes), so a warp reads and writes whole rows, coalesced (C = 128: one
+// f32 tap or two bf16 taps at a time); the corner rows shared by
+// neighbouring taps come from the 50 MB L2. At a denoising step's b4 (T =
+// 2736) the bound is about 2.6 us and the time a chain of latencies: a
+// warp-a-tap kernel that loaded a tap's indices lane by lane and its corner
+// rows one after another waited on several round trips a tap. Here a
+// group's indices come in one trip, a tap's K corner pieces are all in
+// flight before its first FMA, and the next tap's before this one's FMAs
+// and store; the grid is sized from the card's SMs (ops/gather.py::
+// weighted_plan). A design that brings a tile's corner rows into shared
+// memory by bulk asynchronous copies (cp.async.bulk, as onehot_gather.cu
+// does) was slower at every path shape on an H100: an SM's copy engine
+// takes about one bulk copy every 25 ns whatever its size, while plain
+// loads reach L2's rate (PERF.md, section 6).
 //
 // Backward, d_flat (scatter_tile): one block per (row range, channel slice,
 // frame) keeps that tile of the frame's d_flat, rows x cs f32, in dynamic
@@ -74,6 +81,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kScatterThreads = 1024;
+// the d_w kernel's blocks an SM, past which its grid strides
+constexpr int kDwBlocksPerSm = 16;
+// the forward's blocks: at most 8 warps, and 4 of them an SM at 64
+// registers a thread (32 warps an SM), as ops/gather.py::weighted_plan
+// sizes the grid
+constexpr int kFwdThreads = 256;
+constexpr int kFwdBlocksPerSm = 4;
+constexpr long long kMaxInt = 0x7fffffffLL;
 
 // loads and stores of 4 consecutive elements of a row, and of one weight,
 // as f32: float4 (16 bytes) or 4 bf16 (8 bytes)
@@ -124,34 +139,252 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float4 fma4(float a, float4 x, float4 acc) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-  return acc;
+// ---------------------------------------------------------------- forward
+
+// A piece of a row: V consecutive elements of E moved by one load or store
+// (f32: 16 bytes; bf16: 16 bytes, or 8 where a row is not a multiple of 16
+// bytes).
+template <typename E, int V>
+struct Piece;
+template <>
+struct Piece<float, 4> {
+  using Raw = float4;
+};
+template <>
+struct Piece<__nv_bfloat16, 4> {
+  using Raw = uint2;
+};
+template <>
+struct Piece<__nv_bfloat16, 8> {
+  using Raw = uint4;
+};
+
+__device__ __forceinline__ float2 bf16x2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// acc[e] = fmaf(wk, x[e], acc[e]) over the elements of a piece
+__device__ __forceinline__ void fma_piece(float wk, float4 r,
+                                          float (&acc)[4]) {
+  acc[0] = fmaf(wk, r.x, acc[0]);
+  acc[1] = fmaf(wk, r.y, acc[1]);
+  acc[2] = fmaf(wk, r.z, acc[2]);
+  acc[3] = fmaf(wk, r.w, acc[3]);
+}
+
+__device__ __forceinline__ void fma_piece(float wk, uint2 r,
+                                          float (&acc)[4]) {
+  const float2 a = bf16x2(r.x), b = bf16x2(r.y);
+  acc[0] = fmaf(wk, a.x, acc[0]);
+  acc[1] = fmaf(wk, a.y, acc[1]);
+  acc[2] = fmaf(wk, b.x, acc[2]);
+  acc[3] = fmaf(wk, b.y, acc[3]);
+}
+
+__device__ __forceinline__ void fma_piece(float wk, uint4 r,
+                                          float (&acc)[8]) {
+  const unsigned u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = bf16x2(u[i]);
+    acc[2 * i] = fmaf(wk, a.x, acc[2 * i]);
+    acc[2 * i + 1] = fmaf(wk, a.y, acc[2 * i + 1]);
+  }
+}
+
+__device__ __forceinline__ void pack_piece(const float (&a)[4], float4& r) {
+  r = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+__device__ __forceinline__ void pack_piece(const float (&a)[4], uint2& r) {
+  r = make_uint2(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]));
+}
+
+__device__ __forceinline__ void pack_piece(const float (&a)[8], uint4& r) {
+  r = make_uint4(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]),
+                 pack_bf16x2(a[4], a[5]), pack_bf16x2(a[6], a[7]));
+}
+
+// An output piece's store: streaming (st.global.cs), since nothing in the
+// kernel reads the output again, so it leaves L2 first and the table's
+// rows, read by several taps, stay. Row pieces load by __ldg, allocating in
+// L1, whose hits pay: loads that skip L1 were slower at every path shape
+// on an H100, and plain stores no faster (PERF.md, section 6).
+template <typename Raw>
+__device__ __forceinline__ void store_piece(Raw* p, const Raw& v) {
+  __stcs(p, v);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One (tap, corner) entry of a warp's group, held by one lane: the raw
+// index and weight as loaded, then the corner's row of the whole (B * L)-row
+// table, clipped, and its weight rounded to E. The caller keeps B * L and
+// B * T * K below 2**31, so rows and entries are 32-bit.
+template <typename Wt>
+struct Entry {
+  int j;
+  Wt w;
+};
+
+template <typename Wt>
+__device__ __forceinline__ Entry<Wt> load_entry(const int* __restrict__ idx,
+                                                const Wt* __restrict__ w,
+                                                int e, bool valid) {
+  Entry<Wt> r;
+  r.j = valid ? __ldg(idx + e) : 0;
+  r.w = valid ? w[e] : Wt(0.f);
+  return r;
 }
 
 template <typename E, typename Wt>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void place_entry(const Entry<Wt>& raw, int tap,
+                                            int L, int T, int& row,
+                                            float& wk) {
+  row = (int)((unsigned)tap / (unsigned)T) * L + min(max(raw.j, 0), L - 1);
+  wk = round_to<E>(to_float(raw.w));
+}
+
+// A lane's place in a group's walk: the tap of the group and the piece of
+// its row; the next place is the next piece of the lane's, or the first
+// piece of the tap R further on.
+struct Step {
+  int tl, c;
+  __device__ __forceinline__ void advance(int R, int S, int cend, int col) {
+    c += S;
+    if (c >= cend) {
+      c = col;
+      tl += R;
+    }
+  }
+};
+
+// Forward. A warp owns groups of G consecutive taps (G * K <= 32, or G = 1
+// for K > 32): warp w of block b takes groups w * blocks + b, then that
+// plus the grid's warps, and so on. Lanes 0..G*K-1 load the group's
+// indices and weights once, one coalesced load each (the next group's
+// while this one's rows are in flight), clip and round them, and hand them
+// out by shuffles. A tap's row is cut into P pieces walked by S lanes (S =
+// P rounded up to a power of two, at most 32), so a warp takes R = 32 / S
+// taps at a time, a step (f32 rows of 128 channels: one tap a step, one
+// float4 a lane; bf16: two taps a step, 16 bytes a lane).
+//
+// K = KC > 0, fixed at compile time (the paths' K = 4, rows of at most 32
+// pieces): a lane loads the K corner pieces of two steps into registers,
+// 2K loads in flight, before the first step's first FMA; the second tap's
+// loads are thus issued before the first's FMAs and store. KC = 0 takes
+// any K and any row, one corner after another, a lane walking pieces col,
+// col + S, ... of wider rows. Both sum acc = fmaf(w_k, x_k, acc) for k =
+// 0..K-1 from acc = 0, so the two agree bit for bit.
+template <int KC, int V, typename E, typename Wt>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
 weighted_gather_fwd(const E* __restrict__ flat, const int* __restrict__ idx,
                     const Wt* __restrict__ w, E* __restrict__ out, int L,
-                    int T, int K, int C4, long long taps) {
+                    int T, int K_, int P, int S, int G, int taps) {
+  using Raw = typename Piece<E, V>::Raw;
+  constexpr int kSteps = 2;  // steps of a batch, their loads in flight
+  const int K = KC > 0 ? KC : K_;
+  const Raw* __restrict__ rows = reinterpret_cast<const Raw*>(flat);
+  Raw* __restrict__ dst = reinterpret_cast<Raw*>(out);
   const int lane = threadIdx.x & 31;
-  const long long nwarps = (long long)gridDim.x * kWarps;
-  for (long long tap = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       tap < taps; tap += nwarps) {
-    const long long base = (tap / T) * L;
-    const int* ip = idx + tap * K;
-    const Wt* wp = w + tap * K;
-    for (int c = lane; c < C4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < K; ++k) {
-        const int j = min(max(__ldg(ip + k), 0), L - 1);
-        acc = fma4(round_to<E>(load1(wp + k)),
-                   load4(flat + ((base + j) * C4 + c) * 4), acc);
+  const int R = 32 / S, sub = lane / S, col = lane % S;
+  const int steps_tap = (P + S - 1) / S;  // pieces of a row a lane walks
+  const int cend = col + steps_tap * S;
+  const int n_e = G * K < 32 ? G * K : 32;  // entries a group hands out
+  const int groups = (taps + G - 1) / G;
+  // groups are dealt to the blocks in turn, so that every block (and,
+  // with a grid of whole rounds of the SMs, every SM) gets an equal share
+  const int nwarps = gridDim.x * (blockDim.x >> 5);
+  int grp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  // the first group's entries; later ones are loaded a group ahead
+  Entry<Wt> raw = load_entry(idx, w, grp * G * K + lane,
+                             grp < groups && lane < n_e &&
+                                 grp * G * K + lane < taps * K);
+  for (; grp < groups; grp += nwarps) {
+    const int tap0 = grp * G;
+    const int ng = min(G, taps - tap0);
+    int row;
+    float wk;
+    place_entry<E>(raw, tap0 + lane / K, L, T, row, wk);
+    if (lane >= ng * K) wk = 0.f;
+    if (grp + nwarps < groups) {
+      const int e = (grp + nwarps) * G * K + lane;
+      raw = load_entry(idx, w, e, lane < n_e && e < taps * K);
+    }
+    if constexpr (KC > 0) {
+      // P <= S: lane col holds piece col of each of its taps, if any
+      const int passes = (ng + R - 1) / R;
+      for (int p0 = 0; p0 < passes; p0 += kSteps) {
+        Raw x[kSteps][KC];
+        // the K pieces of each step's tap, all in flight
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          const int tl = (p0 + u) * R + sub;
+          const int src = min(tl, ng - 1) * KC;
+          const bool on = tl < ng && col < P;
+#pragma unroll
+          for (int k = 0; k < KC; ++k) {
+            const int r = __shfl_sync(0xffffffffu, row, src + k);
+            // zero where off: nothing carried over from the last batch
+            x[u][k] = on ? __ldg(rows + (long long)r * P + col) : Raw{};
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          const int tl = (p0 + u) * R + sub;
+          const int src = min(tl, ng - 1) * KC;
+          float acc[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+          for (int k = 0; k < KC; ++k)
+            fma_piece(__shfl_sync(0xffffffffu, wk, src + k), x[u][k], acc);
+          if (tl < ng && col < P) {
+            Raw o;
+            pack_piece(acc, o);
+            store_piece(dst + (long long)(tap0 + tl) * P + col, o);
+          }
+        }
       }
-      store4(out + (tap * C4 + c) * 4, acc);
+    } else {
+      const int steps = (ng + R - 1) / R * steps_tap;
+      Step st{sub, col};
+      for (int s = 0; s < steps; ++s, st.advance(R, S, cend, col)) {
+        const bool on = st.tl < ng && st.c < P;
+        const int e_tap = min(st.tl, ng - 1) * K;
+        float acc[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = 0.f;
+        int crow = row;
+        float cw = wk;
+        int base = 0;  // the entry that lane 0 holds in crow, cw
+        for (int k = 0; k < K; ++k) {
+          const int e = e_tap + k;
+          if (e - base >= 32) {  // K > 32 (G = 1): the next 32 entries
+            base = e;
+            const Entry<Wt> more =
+                load_entry(idx, w, tap0 * K + base + lane, base + lane < K);
+            place_entry<E>(more, tap0, L, T, crow, cw);
+            if (base + lane >= K) cw = 0.f;
+          }
+          const int r = __shfl_sync(0xffffffffu, crow, e - base);
+          const float wv = __shfl_sync(0xffffffffu, cw, e - base);
+          if (on) fma_piece(wv, __ldg(rows + (long long)r * P + st.c), acc);
+        }
+        if (on) {
+          Raw o;
+          pack_piece(acc, o);
+          store_piece(dst + (long long)(tap0 + st.tl) * P + st.c, o);
+        }
+      }
     }
   }
 }
@@ -304,10 +537,47 @@ weighted_gather_dw(const E* __restrict__ flat, const int* __restrict__ idx,
 
 bool aligned(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-unsigned grid_for(long long warps) {
-  long long blocks = (warps + kWarps - 1) / kWarps;
-  const long long cap = 132LL * 16;     // 16 blocks per SM, then grid-stride
+// the d_w kernel's grid: a warp a tap, at most kDwBlocksPerSm blocks on
+// each of the card's sms SMs, then grid-stride
+unsigned dw_grid(long long taps, int sms) {
+  const long long blocks = (taps + kWarps - 1) / kWarps;
+  const long long cap = (long long)sms * kDwBlocksPerSm;
   return (unsigned)(blocks < cap ? blocks : cap);
+}
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// The forward's launch for a table of E and weights of Wt: K = 4 (the
+// paths' corners) over rows of at most 32 pieces by the kernel that fixes
+// K at compile time, anything else by the one that takes K at run time;
+// 16-byte pieces wherever a row is a multiple of 16 bytes, else (bf16)
+// 8-byte ones. S, the lanes of a tap, is the row's pieces rounded up to a
+// power of two, at most 32.
+template <typename E, typename Wt>
+int launch_fwd(const void* flat, const void* idx, const void* w, void* out,
+               int L, int T, int K, int C, int G, int warps, int blocks,
+               int taps, cudaStream_t stream) {
+  auto go = [&](auto kc, auto v) {
+    constexpr int KC = decltype(kc)::value, V = decltype(v)::value;
+    const int P = C / V;
+    int S = 1;
+    while (S < P && S < 32) S *= 2;
+    weighted_gather_fwd<KC, V, E, Wt><<<blocks, warps * 32, 0, stream>>>(
+        static_cast<const E*>(flat), static_cast<const int*>(idx),
+        static_cast<const Wt*>(w), static_cast<E*>(out), L, T, K, P, S, G,
+        taps);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (sizeof(E) == 2) {
+    if (C % 8 == 0)
+      return K == 4 && C <= 32 * 8 ? go(Int<4>{}, Int<8>{})
+                                   : go(Int<0>{}, Int<8>{});
+  }
+  return K == 4 && C <= 32 * 4 ? go(Int<4>{}, Int<4>{})
+                               : go(Int<0>{}, Int<4>{});
 }
 
 template <typename X>
@@ -355,25 +625,28 @@ int launch_scatter(const void* g, const void* idx, const void* w,
 
 // flat (B, L, C), idx (B, T, K) int32, w (B, T, K), out (B, T, C), all
 // contiguous, C a multiple of 4, flat and out 16-byte aligned; dtype is
-// that of flat and out, wdtype that of w (0 = float32, 1 = bfloat16).
+// that of flat and out, wdtype that of w (0 = float32, 1 = bfloat16). The
+// plan (ops/gather.py::weighted_plan): groups of G taps a warp (G * K <=
+// 32, or G = 1 where K > 32), blocks of `warps` warps (1-8), `blocks`
+// blocks walking the groups. B * L rows and B * T * K entries below 2**31.
 // Returns cudaGetLastError() of the launch.
 extern "C" int pautdx_weighted_gather(const void* flat, const void* idx,
                                       const void* w, void* out, int B, int L,
                                       int T, int K, int C, int dtype,
-                                      int wdtype, void* stream) {
+                                      int wdtype, int G, int warps,
+                                      int blocks, void* stream) {
   const long long taps = (long long)B * T;
   if (taps == 0) return cudaSuccess;
-  if (L <= 0 || K <= 0 || C <= 0 || C % 4 || !aligned(flat) || !aligned(out))
+  if (L <= 0 || K <= 0 || C <= 0 || C % 4 || !aligned(flat) ||
+      !aligned(out) || G <= 0 || (K <= 32 ? G * K > 32 : G != 1) ||
+      warps <= 0 || warps * 32 > kFwdThreads || blocks <= 0 ||
+      (long long)B * L > kMaxInt || taps * K > kMaxInt)
     return cudaErrorInvalidValue;
   return with_types(dtype, wdtype, [&](auto te, auto tw) {
     using E = typename decltype(te)::type;
     using Wt = typename decltype(tw)::type;
-    weighted_gather_fwd<E, Wt><<<grid_for(taps), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const E*>(flat), static_cast<const int*>(idx),
-        static_cast<const Wt*>(w), static_cast<E*>(out), L, T, K, C / 4,
-        taps);
-    return (int)cudaGetLastError();
+    return launch_fwd<E, Wt>(flat, idx, w, out, L, T, K, C, G, warps, blocks,
+                             (int)taps, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -381,15 +654,15 @@ extern "C" int pautdx_weighted_gather(const void* flat, const void* idx,
 // flat's dtype and d_w (B, T, K) in w's, every element written by the
 // kernels (the caller need not zero them); the d_flat tile of one block is
 // rows x cs (cs a multiple of 4 dividing C, rows * cs * 4 bytes at most
-// 227 KB). The rest as above. Two launches, d_flat then d_w. Returns the
-// first CUDA error.
+// 227 KB); sms the card's SMs, which size d_w's grid. The rest as above.
+// Two launches, d_flat then d_w. Returns the first CUDA error.
 extern "C" int pautdx_weighted_gather_backward(
     const void* flat, const void* idx, const void* w, const void* g,
     void* d_flat, void* d_w, int B, int L, int T, int K, int C, int cs,
-    int rows, int dtype, int wdtype, void* stream) {
+    int rows, int dtype, int wdtype, int sms, void* stream) {
   if ((long long)B * L * C == 0) return cudaSuccess;
   if (L <= 0 || K <= 0 || C <= 0 || C % 4 || !aligned(flat) || !aligned(g) ||
-      !aligned(d_flat))
+      !aligned(d_flat) || sms <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, wdtype, [&](auto te, auto tw) {
@@ -399,7 +672,7 @@ extern "C" int pautdx_weighted_gather_backward(
                                                 K, C, cs, rows, s);
     const long long taps = (long long)B * T;
     if (err != cudaSuccess || taps == 0) return err;
-    weighted_gather_dw<E, Wt><<<grid_for(taps), kThreads, 0, s>>>(
+    weighted_gather_dw<E, Wt><<<dw_grid(taps, sms), kThreads, 0, s>>>(
         static_cast<const E*>(flat), static_cast<const int*>(idx),
         static_cast<const E*>(g), static_cast<Wt*>(d_w), L, T, K, C / 4,
         taps);

@@ -16,8 +16,10 @@ The one-hot forward cuts the taps into tiles of one frame's taps
 (:func:`forward_tiles`), which a persistent grid walks: a block brings a
 tile's rows into shared memory by Hopper's bulk asynchronous copies, all in
 flight together, and writes the tile out from there by one bulk copy. The
-weighted forward runs one warp a tap, its corner rows by plain loads. The
-backwards tile the table instead (:func:`scatter_tiles`).
+weighted forward deals groups of a few taps to warps (:func:`weighted_plan`):
+a warp loads its group's indices and weights once and keeps a tap's corner
+rows in flight together, by plain loads. The backwards tile the table
+instead (:func:`scatter_tiles`). Every grid is sized from the card's SMs.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The kernels of ``weighted_gather.cu`` take
@@ -59,18 +61,33 @@ MIN_TILE_TAPS = 4
 FILL_PER_SM = 8
 STAGES = 2
 BLOCKS_PER_SM = 16
+# the weighted forward's plan (:func:`weighted_plan`): warps a block, the
+# warps an SM holds (the kernel's launch bounds: 4 blocks of 8 warps at 64
+# registers a thread), the share of them the groups should fill, and the
+# fewest and most taps of a warp's group (the best of ``kernel_ab.py
+# wplans`` on an H100)
+WEIGHTED_WARPS = 8
+SM_WARPS = 32
+WEIGHTED_FILL = 0.8
+MIN_GROUP = 1
+MAX_GROUP = 6
+# the taps of a group where even ``MAX_GROUP`` leaves more groups than one
+# wave takes: each warp then walks several groups, the next one's indices
+# loaded during this one's rows
+MANY_WAVES_GROUP = 4
 # the element types of weighted_gather.cu's kernels, as their C codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # flat, idx, out, B, L, T, row bytes, tt, cb, stages, blocks, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# flat, idx, w, out, B, L, T, K, C, dtype, wdtype, stream
-_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+# flat, idx, w, out, B, L, T, K, C, dtype, wdtype, group, warps, blocks,
+# stream
+_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p]
 # flat, idx, w, g, d_flat, d_w, B, L, T, K, C, cs, rows, dtype, wdtype,
-# stream
-_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+# sms, stream
+_WEIGHTED_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p]
 # g, idx, d_flat, B, L, T, C, cs, rows, dtype, stream
 _ONEHOT_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
@@ -122,6 +139,60 @@ def forward_tiles(B: int, T: int, row_bytes: int, sms: int,
     smem = stages * tt * cb
     per_sm = min(BLOCKS_PER_SM, max(1, sm_smem // (smem + 1024)))
     return ForwardPlan(tt, cb, stages, min(tiles, sms * per_sm), tiles, smem)
+
+
+class WeightedPlan(NamedTuple):
+    """The launch of the weighted forward: groups of ``group`` consecutive
+    taps, ``groups`` of them, one warp's each, walked by ``blocks`` blocks
+    of ``warps`` warps (warp w of block b takes groups w * blocks + b, that
+    plus blocks * warps, ...: the blocks take turns)."""
+    group: int
+    warps: int
+    blocks: int
+    groups: int
+
+
+def taps_a_pass(row_bytes: int) -> int:
+    """The taps a warp of the weighted forward takes at a time: a row's
+    16-byte pieces (8-byte where ``row_bytes`` is not a multiple of 16)
+    are walked by S lanes, S the pieces rounded up to a power of two, at
+    most 32 (``launch_fwd`` in ``weighted_gather.cu``)."""
+    pieces = row_bytes // (16 if row_bytes % 16 == 0 else 8)
+    lanes = 1
+    while lanes < min(pieces, 32):
+        lanes *= 2
+    return 32 // lanes
+
+
+def weighted_plan(B: int, T: int, K: int, row_bytes: int,
+                  sms: int) -> WeightedPlan:
+    """The plan of the weighted forward for B frames of T taps of K
+    corners, rows of ``row_bytes`` bytes, on a card of ``sms`` SMs. A
+    group's K corners a tap fill at most a warp's 32 lanes (one tap where
+    K > 32). Within that and [``MIN_GROUP``, ``MAX_GROUP``], a group takes
+    the fewest taps (a multiple of the taps a warp takes at a time, where
+    it can) with which the groups fill at most ``WEIGHTED_FILL`` of one
+    wave of the card's resident warps, ``sms * SM_WARPS``: a small launch
+    spreads over every SM, a larger one loads more taps' indices at once;
+    where no group size fits, the one nearest ``MANY_WAVES_GROUP``. The
+    grid is whole rounds of the SMs, blocks of ``WEIGHTED_WARPS`` warps,
+    as few rounds as give every group a warp, at most as many as the SMs
+    hold (then warps take several groups) and at most one block a group:
+    the blocks take groups in turn, so every SM gets an equal share."""
+    taps = B * T
+    most = max(1, min(MAX_GROUP, 32 // K))
+    step = taps_a_pass(row_bytes)
+    sizes = [g for g in range(max(1, min(MIN_GROUP, most)), most + 1)
+             if g % step == 0] or [most]
+    fits = [g for g in sizes
+            if -(-taps // g) <= WEIGHTED_FILL * sms * SM_WARPS]
+    group = fits[0] if fits else min(
+        sizes, key=lambda g: abs(g - MANY_WAVES_GROUP))
+    groups = -(-taps // group)
+    rounds = max(1, min(SM_WARPS // WEIGHTED_WARPS,
+                        -(-groups // (sms * WEIGHTED_WARPS))))
+    return WeightedPlan(group, WEIGHTED_WARPS, min(sms * rounds, groups),
+                        groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,7 +426,7 @@ def weighted_gather_backward(flat: torch.Tensor, idx: torch.Tensor,
         rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(),
                 d_flat.data_ptr(), d_w.data_ptr(), B, L, T, K, C,
                 *scatter_tiles(L, C), _DTYPES[flat.dtype], _DTYPES[w.dtype],
-                stream)
+                _sm_limits(flat.device.index)[0], stream)
         WEIGHTED_BACKWARD_LAUNCHES += 1
     _build.check(rc, "weighted_gather_backward")
     return d_flat, d_w
@@ -366,6 +437,10 @@ def _weighted_forward(flat, idx, w) -> torch.Tensor:
     _check_kernel_inputs(flat, idx, w)
     B, L, C = flat.shape
     T, K = idx.shape[1:]
+    if max(B * L, B * T * K) >= 2**31:
+        raise ValueError(f"weighted_gather: the kernel indexes rows and "
+                         f"(tap, corner) entries in 32 bits; got {B * L} "
+                         f"rows and {B * T * K} entries")
     out = torch.empty((B, T, C), dtype=flat.dtype, device=flat.device)
     if out.numel() == 0:
         return out
@@ -373,8 +448,11 @@ def _weighted_forward(flat, idx, w) -> torch.Tensor:
                          _WEIGHTED_ARGTYPES)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
+        plan = weighted_plan(B, T, K, C * flat.element_size(),
+                             _sm_limits(flat.device.index)[0])
         rc = fn(flat.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                B, L, T, K, C, _DTYPES[flat.dtype], _DTYPES[w.dtype], stream)
+                B, L, T, K, C, _DTYPES[flat.dtype], _DTYPES[w.dtype],
+                plan.group, plan.warps, plan.blocks, stream)
         WEIGHTED_LAUNCHES += 1
     _build.check(rc, "weighted_gather")
     return out

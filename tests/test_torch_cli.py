@@ -47,6 +47,7 @@ from pautdx_torch.train import temporal as ttemporal
 from pautdx_torch.train.checkpoint import (
     CheckpointManager, load_model_state, restore_dfine,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 64
 SIGNAL_MODEL, SEQ_LEN, SAMPLES = "HybridBinary", 30, 160

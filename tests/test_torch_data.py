@@ -22,6 +22,7 @@ from pautdx_torch.data import synthetic as t_syn
 from pautdx_torch.data import vision as t_vision
 from pautdx_torch.data import volume as t_volume
 from pautdx_torch.data.prefetch import ThreadedHostLoader
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPEC = dict(n_beams=6, n_scans=12, n_samples=96, seed=7)
 

@@ -15,6 +15,7 @@ import torch
 
 from pautdx.losses import denoising as jdn
 from pautdx_torch.losses import denoising as tdn
+from torch_threads import one_torch_thread  # noqa: F401
 
 NUM_LABELS = 2
 NUM_QUERIES = 20

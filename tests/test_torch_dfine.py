@@ -1,8 +1,9 @@
 """pautdx_torch's D-FINE-nano serving slice held to the JAX reference on the
 CPU: the same numpy weights and inputs go through both packages.
 
-One module-scoped JAX init; every BN statistic, scale and bias is then
-randomised so that a wrong leaf mapping shows in the outputs.
+One module-scoped set of weights, drawn over ``jax.eval_shape``'s tree as
+the JAX init draws them (no JAX init runs); every BN statistic, scale and
+bias is randomised so that a wrong leaf mapping shows in the outputs.
 """
 
 import dataclasses
@@ -21,6 +22,7 @@ from pautdx_torch.compat.jax_weights import flatten, load_jax_variables
 from pautdx_torch.models.vision import dfine as tdf
 from pautdx_torch.models.vision.hgnet import HGNetConfig, HGNetV2
 from pautdx_torch.serve import throughput as tthr
+from torch_threads import one_torch_thread  # noqa: F401
 
 # 224px: 14x14 + 7x7 = 245 anchors, so all 150 queries are selected
 IMG = 224
@@ -52,17 +54,42 @@ def _randomise(tree, rng):
     return out
 
 
+def random_variables(model, x, rng):
+    """Variables of ``model``'s tree, from ``jax.eval_shape`` of its init
+    on ``x`` (nothing of the init runs), drawn as that init draws them:
+    kernels N(0, 1 / fan_in) (flax's lecun_normal, fan_in the product of
+    all but the last axis), embeddings N(0, 1 / features); then every BN
+    statistic, scale and bias randomised as ``_randomise`` does, so that a
+    wrong leaf mapping shows."""
+    shapes = jax.eval_shape(lambda k: model.init({"params": k}, x,
+                                                 train=False),
+                            jax.random.PRNGKey(0))
+
+    def draw(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = draw(v)
+            elif k == "kernel":
+                fan_in = int(np.prod(v.shape[:-1]))
+                out[k] = rng.normal(0.0, fan_in ** -0.5, v.shape)
+            elif k == "embedding":
+                out[k] = rng.normal(0.0, v.shape[-1] ** -0.5, v.shape)
+            else:
+                out[k] = np.zeros(v.shape, np.float32)
+        return out
+
+    return _randomise(draw(dict(shapes)), rng)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     cfg = _jax_cfg()
     side = IMG // PATCH
-    variables = jdf.DFine(cfg).init(
-        {"params": jax.random.PRNGKey(0)},
-        jnp.zeros((1, side, side, PATCH * PATCH * 3), jnp.float32),
-        train=False)
     rng = np.random.default_rng(0)
-    variables = _randomise(jax.tree_util.tree_map(np.asarray,
-                                                  dict(variables)), rng)
+    variables = random_variables(
+        jdf.DFine(cfg),
+        jnp.zeros((1, side, side, PATCH * PATCH * 3), jnp.float32), rng)
     img = rng.integers(0, 256, size=(2, IMG, IMG, 3)).astype(np.uint8)
     return cfg, variables, img
 

@@ -30,6 +30,7 @@ from pautdx_torch.models.vision import dfine as tdf
 from pautdx_torch.models.vision.hgnet import HGNetConfig, HGNetV2
 from pautdx_torch.ops import attention, deformable
 from pautdx_torch.serve.dfine_predict import build_dfine_predictor
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 128
 

@@ -25,6 +25,7 @@ from pautdx_torch.compat import dfine_import
 from pautdx_torch.compat.jax_weights import load_jax_variables
 from pautdx_torch.eval import accuracy
 from pautdx_torch.models.vision import dfine as tdf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIDE = 128
 

@@ -2,8 +2,9 @@
 of D-FINE-nano training (``dfine_nano(num_labels=2)`` at 128px, AdamW at
 the CLI's lr, clipping, f32) from the same weights and batches.
 
-One module-scoped JAX computation, the reference Trainer's two steps. The
-weights, batches and objective are those of tests/test_torch_dfine_train.py.
+One module-scoped JAX computation, the reference Trainer's two steps from
+the state its ``init`` makes (the init jitted). The weights, batches and
+objective are those of tests/test_torch_dfine_train.py.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_dfine_trainer.py
 
@@ -23,12 +24,14 @@ import torch
 from pautdx.models.vision import dfine as jdf
 from pautdx.train import Trainer as JTrainer
 from pautdx.train import make_optimizer as j_make_optimizer
+from pautdx.train.trainer import TrainState as JTrainState
 from pautdx_torch.compat.jax_weights import load_jax_variables, port_state_dict
 from pautdx_torch.train.detector import dfine_objective, make_train_batches
 from pautdx_torch.train.optim import make_optimizer
 from pautdx_torch.train.trainer import Trainer
-from test_torch_dfine_train import (IMG, LR, _j_objective, _port, _randomise,
-                                    _zero_floor)
+from test_torch_dfine_train import (IMG, LR, _j_objective, _port,
+                                    _zero_floor, init_variables)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ADAM_EPS = 1e-8
 
@@ -42,17 +45,14 @@ def _reference_steps():
     batches = make_train_batches(2, 2, size=IMG, seed=1)
     jt = JTrainer(jdf.DFine(cfg), _j_objective, j_make_optimizer(LR),
                   input_key="images", prefetch=0)
-    state = jt.init(batches[0])
-    variables = _randomise(jax.tree_util.tree_map(
-        np.asarray, {"params": state.params,
-                     "batch_stats": state.batch_stats}),
-        np.random.default_rng(0))
+    # the state Trainer.init makes, its init jitted
+    variables = init_variables(cfg, np.random.default_rng(0))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    state = state.replace(
-        params=params,
+    state = JTrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
         batch_stats=jax.tree_util.tree_map(jnp.asarray,
                                            variables["batch_stats"]),
-        opt_state=jt.optimizer.init(params))
+        opt_state=jt.optimizer.init(params), ema_params=None)
     steps = []
     for batch in batches:
         state, metrics = jt.train_epoch(state, [batch])

@@ -18,6 +18,7 @@ from pautdx.ops.pallas_gather import (
     pallas_onehot_gather, pallas_weighted_gather,
 )
 from pautdx_torch.ops import deformable, gather
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _onehot_inputs(seed, B=2, L=30, C=8, T=40, low=0, high=None):
@@ -199,6 +200,78 @@ def test_forward_tiles_cut_rows_that_outgrow_a_tile(row_bytes):
     assert (_forward_hits(B, T, row_bytes, plan) == 1).all()
     starts = np.arange(0, row_bytes, plan.cb)   # the pieces tile the row
     assert starts[-1] < row_bytes <= starts[-1] + plan.cb
+
+
+def _weighted_hits(B, T, plan):
+    """How often the weighted forward's warps take each tap, and how many
+    groups each block takes, walking the groups as the kernel does: warp w
+    of block b takes groups w * blocks + b, that plus blocks * warps, ...,
+    group g the taps g * group .. (g + 1) * group - 1 that exist."""
+    taps = B * T
+    assert plan.groups == -(-taps // plan.group)
+    nwarps = plan.blocks * plan.warps
+    hits = np.zeros(taps, np.int32)
+    per_block = np.zeros(plan.blocks, np.int64)
+    for b in range(plan.blocks):
+        for w in range(plan.warps):
+            for g in range(w * plan.blocks + b, plan.groups, nwarps):
+                hits[g * plan.group:(g + 1) * plan.group] += 1
+                per_block[b] += 1
+    return hits, per_block
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("row_bytes", [256, 512])
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("B,T", [(16, 1200), (4, 2736), (50, 1200),
+                                 (4, 1201), (70000, 3)])
+def test_weighted_plan_covers_every_tap_once(B, T, K, row_bytes, sms):
+    """The weighted forward's plan at the paths' (B, T) (training b16, the
+    denoising step's b4, a temporal step's b50), a ragged T and 70,000
+    frames, for K = 1, 3, 4 (the paths'), 5, 9 corners and bf16 and f32
+    rows of 128 channels, on cards of 132 and 114 SMs: every tap is one
+    warp's exactly once; a group's entries fit a warp's 32 lanes; the
+    blocks keep the kernel's launch bounds (at most 8 warps, the SMs'
+    resident warps) and come in whole rounds of the SMs (or one a group),
+    each with a group, their shares of the groups within one of each
+    other; a group holds a multiple of the taps a warp takes at a time
+    where it can, and the groups fill at most ``WEIGHTED_FILL`` of one
+    wave of those warps, or take the size nearest ``MANY_WAVES_GROUP``
+    where none fits."""
+    plan = gather.weighted_plan(B, T, K, row_bytes, sms)
+    assert 1 <= plan.group and plan.group * K <= 32
+    assert 1 <= plan.warps <= 8
+    assert 1 <= plan.blocks <= sms * gather.SM_WARPS // plan.warps
+    assert plan.blocks <= plan.groups
+    assert plan.blocks % sms == 0 or plan.blocks == plan.groups
+    hits, per_block = _weighted_hits(B, T, plan)
+    assert (hits == 1).all()
+    assert per_block.min() >= 1 and per_block.max() - per_block.min() <= 1
+    most = min(gather.MAX_GROUP, 32 // K)
+    sizes = [g for g in range(1, most + 1)
+             if g % gather.taps_a_pass(row_bytes) == 0] or [most]
+    assert plan.group in sizes
+    assert plan.groups <= gather.WEIGHTED_FILL * sms * gather.SM_WARPS or \
+        plan.group == min(sizes,
+                          key=lambda g: abs(g - gather.MANY_WAVES_GROUP))
+
+
+def test_weighted_plan_grid_follows_the_card():
+    """The grid comes from the card's SM count: a temporal step's b50 fills
+    every SM's resident warps on a card of 132, 114 or 66 SMs, a launch of
+    a few taps takes one block a group, and a card of twice the SMs takes
+    smaller groups at a denoising step's b4; K = 40 takes one tap a group;
+    a 20-channel bf16 row (40 bytes, five 8-byte pieces, 8 lanes) takes 4
+    taps at a time."""
+    for sms in (132, 114, 66):
+        plan = gather.weighted_plan(50, 1200, 4, 512, sms)
+        assert plan.blocks * plan.warps == sms * gather.SM_WARPS
+        assert gather.weighted_plan(2, 5, 4, 512, sms).blocks == 10
+    assert gather.weighted_plan(4, 2736, 4, 512, 264).group < \
+        gather.weighted_plan(4, 2736, 4, 512, 132).group
+    assert gather.weighted_plan(4, 37, 40, 512, 132).group == 1
+    assert gather.taps_a_pass(40) == 4 and gather.taps_a_pass(256) == 2
+    assert gather.taps_a_pass(512) == 1 and gather.taps_a_pass(32768) == 1
 
 
 def _bf16(a):

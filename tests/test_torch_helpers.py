@@ -17,6 +17,7 @@ from pautdx_torch.data import synthetic as tsynth
 from pautdx_torch.data import vision as tvision
 from pautdx_torch.data import volume as tvolume
 from pautdx_torch.utils import debug as tdebug
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _nonfinite():

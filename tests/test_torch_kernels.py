@@ -463,6 +463,78 @@ def test_weighted_gather_kernel_matches_plain_bf16(cuda, shape, pile_up,
                                    atol=ulp + 1e-5 * peak)
 
 
+def _assert_gather_close(got, want):
+    """Within 1e-5 of want's largest magnitude, plus one bf16 ulp of it
+    for a bf16 output (the plain version sums in another order)."""
+    peak = want.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(peak)) - 7) if got.dtype == \
+        torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ulp + 1e-5 * peak)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weighted_gather_routes_agree_bit_for_bit(cuda, dtype):
+    """The forward's two routes: K = 4 (the paths') by the kernel that
+    fixes K at compile time, any other K by the one that takes it at run
+    time; both sum fmaf(w_k, x_k, acc) in corner order. K = 5 with a
+    zero-weight fifth corner over a finite table equals K = 4 bit for bit;
+    K in {1, 2, 3, 8} and K = 40 (past a warp's 32 lanes: one tap a group,
+    its entries loaded 32 at a time) are held to the plain version. T =
+    1201 leaves a ragged last group."""
+    B, L, C, T = 4, 2000, 128, 1201
+    dt = getattr(torch, dtype)
+    flat, idx, w = _weighted_inputs(B, L, C, T, seed=19, device=cuda)
+    flat = flat.to(dt)
+    rng = np.random.default_rng(20)
+    idx5 = torch.cat([idx, torch.from_numpy(rng.integers(
+        -2, L + 3, (B, T, 1)).astype(np.int32)).to(cuda)], -1).contiguous()
+    w5 = torch.cat([w, torch.zeros_like(w[..., :1])], -1).contiguous()
+    before = gather.WEIGHTED_LAUNCHES
+    with torch.no_grad():
+        got4 = gather.weighted_gather(flat, idx, w)
+        got5 = gather.weighted_gather(flat, idx5, w5)
+    torch.cuda.synchronize()
+    assert gather.WEIGHTED_LAUNCHES == before + 2
+    assert torch.equal(got4, got5)
+    for K in (1, 2, 3, 8, 40):
+        idxk = torch.from_numpy(rng.integers(-2, L + 3, (B, T, K))
+                                .astype(np.int32)).to(cuda)
+        wk = torch.from_numpy(rng.uniform(0, 1, (B, T, K))
+                              .astype(np.float32)).to(cuda)
+        with torch.no_grad():
+            got = gather.weighted_gather(flat, idxk, wk)
+        _assert_gather_close(got, gather.weighted_gather_reference(
+            flat, idxk, wk))
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 6, 8])
+def test_weighted_gather_every_group_equals_the_plan(cuda, group,
+                                                     monkeypatch):
+    """Each group size that ``kernel_ab.py wplans`` sweeps (taps a warp's
+    group), set through the plan's bounds, gives the plan's own output bit
+    for bit, f32 and bf16 (one tap and two taps a pass), at a denoising
+    step's b4 with a ragged T; blocks of 4 warps alike."""
+    B, L, C, T = 4, 2000, 128, 1201
+    flat, idx, w = _weighted_inputs(B, L, C, T, seed=group, device=cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        table = flat.to(dt)
+        with torch.no_grad():
+            want = gather.weighted_gather(table, idx, w)
+            for warps in (8, 4):
+                with monkeypatch.context() as m:
+                    m.setattr(gather, "MIN_GROUP", group)
+                    m.setattr(gather, "MAX_GROUP", group)
+                    m.setattr(gather, "WEIGHTED_WARPS", warps)
+                    plan = gather.weighted_plan(B, T, 4, C * table
+                                                .element_size(), 132)
+                    assert (plan.group, plan.warps) == (group, warps)
+                    got = gather.weighted_gather(table, idx, w)
+                assert torch.equal(got, want), (dt, warps)
+        _assert_gather_close(want, gather.weighted_gather_reference(
+            table, idx, w))
+
+
 @pytest.mark.parametrize("case", ["frames", "rows"])
 def test_gather_forwards_past_a_grid_and_a_tile(cuda, case):
     """The forward kernels at their edges: 70,000 frames, more than a

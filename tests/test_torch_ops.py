@@ -17,6 +17,7 @@ from pautdx.ops.pallas_attention import aifi_attention as j_aifi_attention
 from pautdx.ops.pallas_attention import fused_attention as j_fused_attention
 from pautdx.ops.pallas_gather import pallas_onehot_gather
 from pautdx_torch.ops import attention, deformable, gather
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _qkv(shape, seed):

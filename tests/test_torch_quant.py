@@ -29,6 +29,7 @@ from pautdx_torch.models.vision import dfine as tdf
 from pautdx_torch.models.vision import yolo as tyolo
 from pautdx_torch.ops import qconv
 from pautdx_torch.serve import quantize
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 

@@ -18,6 +18,7 @@ from pautdx.train import recipes as jrec
 from pautdx_torch import losses as tl
 from pautdx_torch.losses import heatmap as thm
 from pautdx_torch.train import recipes as trec
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 B, L = 3, 7

@@ -25,6 +25,7 @@ from pautdx_torch.nn import attention as tatt
 from pautdx_torch.nn import blocks as tb
 from pautdx_torch.nn import transformer as ttr
 from tests.test_torch_signal_zoo import random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 C_IN = 6

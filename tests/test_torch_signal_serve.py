@@ -44,6 +44,7 @@ from pautdx_torch.models.signal import (
 from pautdx_torch.serve.bridge import serve_signals
 from pautdx_torch.serve.endpoints import SignalEndpoint
 from tests.test_torch_signal_zoo import random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 S = 64

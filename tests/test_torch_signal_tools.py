@@ -38,6 +38,7 @@ from pautdx_torch.models.signal import build_signal_model
 from pautdx_torch.serve.export import export_signal_model, load_exported
 from pautdx_torch.train import anomaly as tanomaly
 from pautdx_torch.utils import autogates as tgates
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

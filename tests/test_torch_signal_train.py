@@ -60,6 +60,7 @@ from pautdx_torch.train.signal import (
 )
 from pautdx_torch.train.trainer import Trainer
 from tests.test_torch_signal_zoo import random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, L, S = 2, 5, 64
 STEPS = 3

@@ -33,6 +33,7 @@ from pautdx_torch.nn import attention as tatt
 from pautdx_torch.nn import fpn1d as tfpn
 from pautdx_torch.nn import recurrent as trec
 from tests.test_torch_signal_zoo import random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 STATS_TOL = 1e-6

@@ -23,6 +23,7 @@ from pautdx_torch.compat.jax_weights import load_jax_variables
 from pautdx_torch.models.signal import (
     MODEL_ZOO, DenseAutoencoder, build_signal_model,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, S = 2, 10, 320
 TOL = 1e-5

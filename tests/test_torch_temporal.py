@@ -42,6 +42,7 @@ from pautdx_torch.nn.transformer import Encoder
 from pautdx_torch.serve import temporal_predict as tp
 from pautdx_torch.serve.bridge import serve_frames
 from pautdx_torch.serve.endpoints import chunked_sequence_runner
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 T = 4

@@ -36,6 +36,7 @@ from pautdx_torch.train import temporal as ttrain
 from pautdx_torch.train.checkpoint import CheckpointManager
 from pautdx_torch.train.detector import dfine_metadata
 from tests.test_dfine_train import TINY
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 T = 4

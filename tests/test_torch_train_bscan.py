@@ -14,6 +14,7 @@ from pautdx_torch.data import synthetic
 from pautdx_torch.eval import accuracy
 from pautdx_torch.train.checkpoint import CheckpointManager, restore_dfine
 from pautdx_torch.train.detector import train_bscan_detector
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -32,6 +32,7 @@ from pautdx_torch.ops.lapjv import lapjv_batch
 from pautdx_torch.train import optim as toptim
 from pautdx_torch.train.checkpoint import CheckpointManager
 from pautdx_torch.utils.debug import guarded
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a, grad=False):

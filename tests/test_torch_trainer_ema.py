@@ -21,6 +21,7 @@ from pautdx_torch.models.vision.hgnet import BatchNorm
 from pautdx_torch.train.checkpoint import CheckpointManager
 from pautdx_torch.train.optim import make_optimizer
 from pautdx_torch.train.trainer import Trainer, ema_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 DECAY = 0.9
 LR = 1e-2

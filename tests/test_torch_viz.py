@@ -31,6 +31,7 @@ from pautdx_torch.utils import profiling
 from pautdx_torch.viz import explain as texplain
 from pautdx_torch.viz import inspect as tinspect
 from pautdx_torch.viz import model_graph as tgraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _read(path):

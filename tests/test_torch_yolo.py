@@ -20,6 +20,7 @@ from pautdx_torch.compat.jax_weights import flatten, load_jax_variables
 from pautdx_torch.models.vision import yolo as tyolo
 from pautdx_torch.serve import yolo_predict
 from pautdx_torch.serve.endpoints import DetectorEndpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 CHAIN_IMG = 128         # 16x16 + 8x8 + 4x4 = 336 anchors, over top_k 300

@@ -28,6 +28,7 @@ from pautdx_torch.compat.jax_weights import flatten, load_jax_variables
 from pautdx_torch.models.vision import yolo as tyolo
 from pautdx_torch.serve import yolo_predict
 from tests.test_torch_yolo import _jcfg, _randomise
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 # added to each calibrated running variance: a channel of small spread

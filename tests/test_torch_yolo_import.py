@@ -26,6 +26,7 @@ from pautdx_torch.compat.yolo_import import (
 from pautdx_torch.models.vision import yolo as tyolo
 from pautdx_torch.serve.yolo_predict import yolo_config
 from tests.test_yolo_import import TYolo, TYoloV11, TYoloV9C, _randomize
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 NC = 3

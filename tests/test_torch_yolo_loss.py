@@ -33,6 +33,7 @@ from pautdx_torch.losses import yolo as tloss
 from pautdx_torch.models.vision import yolo as tyolo
 from pautdx_torch.serve import yolo_predict
 from pautdx_torch.train import detector
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = 64
 NC = 2

@@ -19,6 +19,7 @@ from pautdx.models.vision.yolo import assemble_masks as j_assemble_masks
 from pautdx.ops.pallas_mask import pallas_assemble_masks
 from pautdx.ops.pallas_nms import nms_suppress as j_nms_suppress
 from pautdx_torch.ops import masks, nms, suppress
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the module: ``pautdx.ops`` re-exports its function ``nms`` under that name
 jnms = importlib.import_module("pautdx.ops.nms")
