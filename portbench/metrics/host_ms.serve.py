@@ -1,0 +1,8 @@
+"""Host wall ms a batch inside the port's call, in the YOLO serving cells."""
+
+from portbench.core import readers
+
+LAYER = "serving entry: serve/throughput.py, serve/yolo_predict.py"
+UNIT = "ms"
+MOVES = "frames_per_s"
+read = readers.host_ms
