@@ -357,6 +357,7 @@ its bound come from HBM in the timed call too.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -4223,18 +4224,11 @@ def main() -> None:
         IMG, build_yolo_predictor, make_frame_slab, make_yolo_stream,
         postprocess,
     )
+    from pautdx_torch.utils import profiling
 
     # each kernel wrapper: its module and the counter it adds to
-    counters = {"aifi_attention": (attention, "LAUNCHES"),
-                "onehot_gather": (gather, "LAUNCHES"),
-                "nms_suppress": (suppress, "LAUNCHES"),
-                "assemble_masks": (masks, "LAUNCHES"),
-                "weighted_gather": (gather, "WEIGHTED_LAUNCHES"),
-                "weighted_gather_backward": (gather,
-                                             "WEIGHTED_BACKWARD_LAUNCHES"),
-                "onehot_gather_backward": (gather,
-                                           "ONEHOT_BACKWARD_LAUNCHES"),
-                "int8_conv": (qconv, "LAUNCHES")}
+    counters = {label: (importlib.import_module(module), attr)
+                for label, module, attr in profiling.LAUNCH_COUNTERS}
     wrappers = {name: mod for name, (mod, _) in counters.items()}
     none = dict.fromkeys(counters, 0)
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from pautdx_torch.mesh.comm import dp_count
 from pautdx_torch.models.vision.dfine import weighting_function
 from pautdx_torch.ops.lapjv import lapjv_batch
+from pautdx_torch.utils.profiling import span
 
 SOLVE_SPAN = "hungarian_solve"
 
@@ -77,7 +78,7 @@ def hungarian_match(cost: torch.Tensor) -> torch.Tensor:
     # the solver wants rows = the small side (gt columns): (..., M, Q)
     c = c.transpose(-1, -2).cpu().numpy()
     # a host span of the solve alone, which device_profile reads
-    with torch.profiler.record_function(SOLVE_SPAN):
+    with span(SOLVE_SPAN):
         match = lapjv_batch(c)
     return torch.from_numpy(match.astype(np.int64)).to(cost.device)
 

@@ -43,6 +43,7 @@ from pautdx_torch.models.vision.hgnet import (
 from pautdx_torch.nn.blocks import Dropout
 from pautdx_torch.ops import attention, deformable
 from pautdx_torch.ops.qconv import Int8Site
+from pautdx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -686,104 +687,119 @@ class DFine(nn.Module):
             self.train(train)
         c = self.cfg
         m = self.model
-        feats = m.backbone.model.forward_nchw(images)
-        proj = [p(f) for p, f in zip(m.encoder_input_proj, feats)]
-        sources = m.encoder(proj)
-        B = sources[0].shape[0]
-        dev = sources[0].device
+        with span("dfine.forward"):
+            with span("dfine.backbone"):
+                feats = m.backbone.model.forward_nchw(images)
+            with span("dfine.encoder"):
+                proj = [p(f) for p, f in zip(m.encoder_input_proj, feats)]
+                sources = m.encoder(proj)
+            with span("dfine.select"):
+                B = sources[0].shape[0]
+                dev = sources[0].device
 
-        spatial_shapes = [(s.shape[2], s.shape[3]) for s in sources]
-        nhwc = [s.permute(0, 2, 3, 1) for s in sources]
-        flat = torch.cat([s.reshape(B, -1, c.d_model) for s in nhwc], dim=1)
-        anchors, valid_mask = self.generate_anchors(spatial_shapes, dev)
-        memory = valid_mask.to(flat.dtype) * flat
-        out_mem = m.enc_output(memory)
-        enc_class = m.enc_score_head(out_mem)
+                spatial_shapes = [(s.shape[2], s.shape[3]) for s in sources]
+                nhwc = [s.permute(0, 2, 3, 1) for s in sources]
+                flat = torch.cat([s.reshape(B, -1, c.d_model) for s in nhwc],
+                                 dim=1)
+                anchors, valid_mask = self.generate_anchors(spatial_shapes,
+                                                            dev)
+                memory = valid_mask.to(flat.dtype) * flat
+                out_mem = m.enc_output(memory)
+                enc_class = m.enc_score_head(out_mem)
 
-        num_queries = min(c.num_queries, enc_class.shape[1])
-        topk_ind = torch.topk(enc_class.max(-1).values.float(), num_queries,
-                              dim=1).indices
+                num_queries = min(c.num_queries, enc_class.shape[1])
+                topk_ind = torch.topk(enc_class.max(-1).values.float(),
+                                      num_queries, dim=1).indices
 
-        def take(t):
-            return torch.gather(
-                t, 1, topk_ind[..., None].expand(-1, -1, t.shape[-1]))
+                def take(t):
+                    return torch.gather(
+                        t, 1, topk_ind[..., None].expand(-1, -1, t.shape[-1]))
 
-        sel_anchors = take(anchors.expand(B, -1, -1))
-        ref_unact = m.enc_bbox_head(take(out_mem)).float() + sel_anchors
-        enc_topk_logits = take(enc_class)
-        enc_topk_bboxes = torch.sigmoid(ref_unact)
-        target = take(out_mem).detach()
-        init_ref = ref_unact.detach()
-        attn_mask = None
-        dn_split = 0
-        if denoising is not None:
-            dn_target = m.denoising_class_embed(
-                denoising["class_ids"].long()).to(target.dtype)
-            target = torch.cat([dn_target, target], dim=1)
-            init_ref = torch.cat(
-                [denoising["box_logits"].to(init_ref.dtype), init_ref], dim=1)
-            attn_mask = denoising["attn_mask"][None, None]
-            dn_split = denoising["class_ids"].shape[1]
+                sel_anchors = take(anchors.expand(B, -1, -1))
+                ref_unact = (m.enc_bbox_head(take(out_mem)).float()
+                             + sel_anchors)
+                enc_topk_logits = take(enc_class)
+                enc_topk_bboxes = torch.sigmoid(ref_unact)
+                target = take(out_mem).detach()
+                init_ref = ref_unact.detach()
+            with span("dfine.decoder"):
+                attn_mask = None
+                dn_split = 0
+                if denoising is not None:
+                    dn_target = m.denoising_class_embed(
+                        denoising["class_ids"].long()).to(target.dtype)
+                    target = torch.cat([dn_target, target], dim=1)
+                    init_ref = torch.cat(
+                        [denoising["box_logits"].to(init_ref.dtype), init_ref],
+                        dim=1)
+                    attn_mask = denoising["attn_mask"][None, None]
+                    dn_split = denoising["class_ids"].shape[1]
 
-        value_levels = [s.reshape(s.shape[0], s.shape[1], s.shape[2],
-                                  c.decoder_attention_heads, c.head_dim)
-                        for s in nhwc]
-        project = self.project(dev)
-        ref_points = torch.sigmoid(init_ref)
-        hidden = target
-        out_logits, out_boxes, out_corners, out_refs = [], [], [], []
-        pred_corners_undetach = 0.0
-        output_detach = 0.0
-        ref_points_initial = None
-        eval_idx = c.eval_idx if c.eval_idx >= 0 else c.decoder_layers + c.eval_idx
-        dec = m.decoder
-        for i, layer in enumerate(dec.layers):
-            ref_detach = ref_points.detach()
-            pos = dec.query_pos_head(ref_detach).clamp(-10.0, 10.0)
-            pos = pos.to(hidden.dtype)
-            hidden = layer(hidden, pos, value_levels, ref_detach, attn_mask)
-            if i == 0:
-                new_ref = torch.sigmoid(dec.pre_bbox_head(hidden)
-                                        + inverse_sigmoid(ref_detach))
-                ref_points_initial = new_ref.detach()
-            pred_corners = self.bbox_embed[i](hidden + output_detach) \
-                + pred_corners_undetach
-            inter_ref = distance2bbox(
-                ref_points_initial,
-                integral(pred_corners, project, c.max_num_bins), c.reg_scale)
-            pred_corners_undetach = pred_corners
-            ref_points = inter_ref.detach()
-            output_detach = hidden.detach()
-            scores = self.class_embed[i](hidden)
-            if i == 0:
-                out_logits.append(scores)
-                out_boxes.append(new_ref)
-            scores = dec.lqe_layers[i](scores, pred_corners)
-            out_logits.append(scores)
-            out_boxes.append(inter_ref)
-            out_corners.append(pred_corners)
-            out_refs.append(ref_points_initial)
-        extra = {}
-        if dn_split:
-            extra = {"dn_logits": [t[:, :dn_split] for t in out_logits],
-                     "dn_boxes": [t[:, :dn_split] for t in out_boxes]}
-            out_logits, out_boxes, out_corners, out_refs = (
-                [t[:, dn_split:] for t in ts]
-                for ts in (out_logits, out_boxes, out_corners, out_refs))
-            hidden = hidden[:, dn_split:]
-        return {
-            **extra,
-            "logits": out_logits[eval_idx + 1],
-            "pred_boxes": out_boxes[eval_idx + 1],
-            "last_hidden_state": hidden,
-            "intermediate_logits": out_logits,
-            "intermediate_boxes": out_boxes,
-            "intermediate_corners": out_corners,
-            "initial_references": out_refs,
-            "enc_topk_logits": enc_topk_logits,
-            "enc_topk_bboxes": enc_topk_bboxes,
-            "project": project,
-        }
+                value_levels = [s.reshape(s.shape[0], s.shape[1], s.shape[2],
+                                          c.decoder_attention_heads,
+                                          c.head_dim)
+                                for s in nhwc]
+                project = self.project(dev)
+                ref_points = torch.sigmoid(init_ref)
+                hidden = target
+                out_logits, out_boxes, out_corners, out_refs = [], [], [], []
+                pred_corners_undetach = 0.0
+                output_detach = 0.0
+                ref_points_initial = None
+                eval_idx = (c.eval_idx if c.eval_idx >= 0
+                            else c.decoder_layers + c.eval_idx)
+                dec = m.decoder
+                for i, layer in enumerate(dec.layers):
+                    ref_detach = ref_points.detach()
+                    pos = dec.query_pos_head(ref_detach).clamp(-10.0, 10.0)
+                    pos = pos.to(hidden.dtype)
+                    hidden = layer(hidden, pos, value_levels, ref_detach,
+                                   attn_mask)
+                    if i == 0:
+                        new_ref = torch.sigmoid(dec.pre_bbox_head(hidden)
+                                                + inverse_sigmoid(ref_detach))
+                        ref_points_initial = new_ref.detach()
+                    pred_corners = self.bbox_embed[i](hidden + output_detach) \
+                        + pred_corners_undetach
+                    inter_ref = distance2bbox(
+                        ref_points_initial,
+                        integral(pred_corners, project, c.max_num_bins),
+                        c.reg_scale)
+                    pred_corners_undetach = pred_corners
+                    ref_points = inter_ref.detach()
+                    output_detach = hidden.detach()
+                    scores = self.class_embed[i](hidden)
+                    if i == 0:
+                        out_logits.append(scores)
+                        out_boxes.append(new_ref)
+                    scores = dec.lqe_layers[i](scores, pred_corners)
+                    out_logits.append(scores)
+                    out_boxes.append(inter_ref)
+                    out_corners.append(pred_corners)
+                    out_refs.append(ref_points_initial)
+                extra = {}
+                if dn_split:
+                    extra = {
+                        "dn_logits": [t[:, :dn_split] for t in out_logits],
+                        "dn_boxes": [t[:, :dn_split] for t in out_boxes]}
+                    out_logits, out_boxes, out_corners, out_refs = (
+                        [t[:, dn_split:] for t in ts]
+                        for ts in (out_logits, out_boxes, out_corners,
+                                   out_refs))
+                    hidden = hidden[:, dn_split:]
+                return {
+                    **extra,
+                    "logits": out_logits[eval_idx + 1],
+                    "pred_boxes": out_boxes[eval_idx + 1],
+                    "last_hidden_state": hidden,
+                    "intermediate_logits": out_logits,
+                    "intermediate_boxes": out_boxes,
+                    "intermediate_corners": out_corners,
+                    "initial_references": out_refs,
+                    "enc_topk_logits": enc_topk_logits,
+                    "enc_topk_bboxes": enc_topk_bboxes,
+                    "project": project,
+                }
 
 
 def post_process(logits: torch.Tensor, pred_boxes: torch.Tensor,
@@ -791,16 +807,17 @@ def post_process(logits: torch.Tensor, pred_boxes: torch.Tensor,
                  max_det: int = 100) -> Dict[str, torch.Tensor]:
     """Per-query best class via sigmoid, boxes cxcywh -> xyxy scaled to
     pixels, fixed-size top-k with a validity mask."""
-    probs = torch.sigmoid(logits)
-    B, Q, L = probs.shape
-    k = min(max_det, Q * L)
-    top_scores, idx = torch.topk(probs.reshape(B, Q * L), k, dim=1)
-    q_idx = idx // L
-    classes = idx % L
-    H, W = target_size
-    cx, cy, w, h = pred_boxes.unbind(-1)
-    xyxy = torch.stack([(cx - w / 2) * W, (cy - h / 2) * H,
-                        (cx + w / 2) * W, (cy + h / 2) * H], dim=-1)
-    boxes = torch.gather(xyxy, 1, q_idx[..., None].expand(-1, -1, 4))
-    return {"scores": top_scores, "classes": classes, "boxes": boxes,
-            "valid": top_scores >= threshold}
+    with span("dfine.post_process"):
+        probs = torch.sigmoid(logits)
+        B, Q, L = probs.shape
+        k = min(max_det, Q * L)
+        top_scores, idx = torch.topk(probs.reshape(B, Q * L), k, dim=1)
+        q_idx = idx // L
+        classes = idx % L
+        H, W = target_size
+        cx, cy, w, h = pred_boxes.unbind(-1)
+        xyxy = torch.stack([(cx - w / 2) * W, (cy - h / 2) * H,
+                            (cx + w / 2) * W, (cy + h / 2) * H], dim=-1)
+        boxes = torch.gather(xyxy, 1, q_idx[..., None].expand(-1, -1, 4))
+        return {"scores": top_scores, "classes": classes, "boxes": boxes,
+                "valid": top_scores >= threshold}

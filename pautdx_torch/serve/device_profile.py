@@ -38,7 +38,7 @@ trunk, the temporal encoder, the attention pool, the GRU and the heads),
 and for ``signal`` of each part of HybridBinary (the conv stack, the
 shared MLP, the position encoding, and over the encoder's layers the
 attention, LocalAttention's depthwise convs, the LayerNorms and the FFN),
-from ``torch.profiler.record_function`` ranges that forward hooks open
+from spans (``utils.profiling``) that forward hooks open
 around those modules in the traced run only; ``signal_train`` adds the
 whole forward, the criterion and the optimizer's step as parts, and the
 adaptive pool's operators (forward and backward) as ``signal.pool``; the
@@ -72,6 +72,7 @@ from pautdx_torch.train.detector import build_dfine_trainer, make_train_batches
 from pautdx_torch.train.recipes import RECIPES
 from pautdx_torch.train.signal import recipe_optimizer
 from pautdx_torch.train.trainer import Trainer
+from pautdx_torch.utils.profiling import TRACER, span
 
 TOP = 30
 
@@ -120,13 +121,13 @@ OPTIMIZER_SPAN = "signal.optimizer"
 def signal_train_step(dev: torch.device, seed: int = 0):
     """HybridBinary at published widths in a ``Trainer`` under the
     ``detection`` recipe, its criterion and optimizer step inside
-    ``record_function`` ranges, and one seeded (8, 50, 320) host batch:
+    spans, and one seeded (8, 50, 320) host batch:
     (trainer, state, [batch])."""
     recipe = RECIPES["detection"]
     objective = recipe.make_objective()
 
     def criterion(out, batch):
-        with torch.profiler.record_function(CRITERION_SPAN):
+        with span(CRITERION_SPAN):
             return objective(out, batch)
 
     model = build_signal_model("HybridBinary", device=dev, seed=seed)
@@ -143,7 +144,7 @@ def signal_train_step(dev: torch.device, seed: int = 0):
     step = state.optimizer.step
 
     def optimizer_step(*args, **kwargs):
-        with torch.profiler.record_function(OPTIMIZER_SPAN):
+        with span(OPTIMIZER_SPAN):
             return step(*args, **kwargs)
 
     state.optimizer.step = optimizer_step
@@ -170,20 +171,18 @@ def signal_parts(num_layers: int) -> Dict[str, Tuple[str, ...]]:
 @contextmanager
 def module_spans(model: nn.Module, parts: Dict[str, Tuple[str, ...]]):
     """For a while, each call of the submodules named in ``parts`` (dotted
-    paths; absent ones skipped) runs inside a ``record_function`` range
-    named by its part."""
+    paths; absent ones skipped) runs inside a span named by its part (a
+    ``record_function`` range while the profiler runs)."""
     stack = ExitStack()
-    open_ranges: List[torch.profiler.record_function] = []
+    open_spans = []
 
     def pre(label):
         def hook(module, args):
-            rf = torch.profiler.record_function(label)
-            rf.__enter__()
-            open_ranges.append(rf)
+            open_spans.append(TRACER.begin(label))
         return hook
 
     def post(module, args, out):
-        open_ranges.pop().__exit__(None, None, None)
+        TRACER.end(open_spans.pop())
 
     with stack:
         for label, names in parts.items():

@@ -30,6 +30,7 @@ from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.dfine import DFine, DFineConfig, dfine_nano
 from pautdx_torch.ops.qconv import set_int8_scales
 from pautdx_torch.serve.quantize import Quant, calibrate_int8
+from pautdx_torch.utils.profiling import TRACER, span
 
 
 @torch.no_grad()
@@ -63,19 +64,20 @@ def prepatchify_uint8(frames, patch: int):
     model consumes with the same weights. Leading axes (steps, batch) pass
     through. A numpy array (the host wire format) gives a numpy array; a
     tensor, of any dtype, a contiguous tensor on its own device."""
-    is_tensor = isinstance(frames, torch.Tensor)
-    x = frames if is_tensor else np.asarray(frames)
-    *lead, H, W, C = x.shape
-    if H % patch or W % patch:
-        raise ValueError(f"H/W must be divisible by patch={patch}, "
-                         f"got {H}x{W}")
-    x = x.reshape(*lead, H // patch, patch, W // patch, patch, C)
-    nd = x.ndim
-    # (..., Hp, ki, Wp, kj, c) -> (..., Hp, Wp, ki, kj, c)
-    order = (*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
-    x = x.permute(*order) if is_tensor else np.ascontiguousarray(
-        x.transpose(*order))
-    return x.reshape(*lead, H // patch, W // patch, patch * patch * C)
+    with span("dfine.prepatchify"):
+        is_tensor = isinstance(frames, torch.Tensor)
+        x = frames if is_tensor else np.asarray(frames)
+        *lead, H, W, C = x.shape
+        if H % patch or W % patch:
+            raise ValueError(f"H/W must be divisible by patch={patch}, "
+                             f"got {H}x{W}")
+        x = x.reshape(*lead, H // patch, patch, W // patch, patch, C)
+        nd = x.ndim
+        # (..., Hp, ki, Wp, kj, c) -> (..., Hp, Wp, ki, kj, c)
+        order = (*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
+        x = x.permute(*order) if is_tensor else np.ascontiguousarray(
+            x.transpose(*order))
+        return x.reshape(*lead, H // patch, W // patch, patch * patch * C)
 
 
 def make_uint8_slab(shape: Tuple[int, ...], seed: int = 0,
@@ -127,13 +129,15 @@ def build_serving_model(device: Optional[Union[str, torch.device]] = None,
     float32 weight and statistic cast to bf16, then the uint8 stem fold.
     With ``int8_calib`` (uint8 wire batches on ``device``, a slab or a
     sequence of (B, 80, 80, 192) batches), the int8 sites are calibrated
-    on them and serve s8 x s8 -> s32 from then on."""
+    on them and serve s8 x s8 -> s32 from then on. On a card it readies the
+    tracer's side stream (``utils.profiling.Tracer.prepare``)."""
     dev = resolve_device(device)
     cfg = serving_config()
     model = DFine(cfg, device=dev, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     fold_uint8_stem(cast_params_bf16(model))
+    TRACER.prepare(dev)
     model.eval()
     quant: Quant = {}
     if int8_calib is not None:

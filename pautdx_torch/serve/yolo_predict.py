@@ -45,6 +45,7 @@ from pautdx_torch.ops.nms import dense_to_detections
 from pautdx_torch.ops.qconv import set_int8_scales
 from pautdx_torch.serve.quantize import Quant, calibrate_int8
 from pautdx_torch.serve.throughput import make_uint8_slab, measure_fps
+from pautdx_torch.utils.profiling import TRACER, span
 
 __all__ = ["CONFIGS", "IMG", "YoloPredictor", "build_yolo_predictor",
            "full_f32", "make_frame_slab", "make_yolo_stream", "measure_fps",
@@ -100,16 +101,19 @@ def postprocess(out: Dict, img_size: Tuple[int, int], cfg: YoloConfig,
     served settings with ``nms_kw`` (``dense_to_detections``' keywords)
     over them, and the kept anchors' masks at proto resolution,
     (B, max_det, H/4, W/4)."""
-    d = decode_boxes(out, img_size, cfg)
-    det = dense_to_detections(d, **{**_served_nms(cfg), **nms_kw})
+    with span("yolo.decode"):
+        d = decode_boxes(out, img_size, cfg)
+    with span("yolo.nms"):
+        det = dense_to_detections(d, **{**_served_nms(cfg), **nms_kw})
     if cfg.seg:
-        coeffs = torch.take_along_dim(d["coeffs"], det["indices"][..., None],
-                                      dim=1)
-        # the mask kernel reads dense NHWC protos; they come out dense only
-        # when the convolutions ran channels_last, which depends on how the
-        # caller laid out the images (a no-op when they are)
-        det["masks"] = mask_ops.assemble_masks(out["protos"].contiguous(),
-                                               coeffs, det["boxes"], img_size)
+        with span("yolo.masks"):
+            coeffs = torch.take_along_dim(d["coeffs"],
+                                          det["indices"][..., None], dim=1)
+            # the mask kernel reads dense NHWC protos; they come out dense
+            # only when the convolutions ran channels_last, which depends on
+            # how the caller laid out the images (a no-op when they are)
+            det["masks"] = mask_ops.assemble_masks(
+                out["protos"].contiguous(), coeffs, det["boxes"], img_size)
     return det
 
 
@@ -158,8 +162,10 @@ class YoloPredictor:
         """(B, H, W, 3) float images in [0, 1], any strides -> detections
         (and masks), in full f32 whatever the global TF32 settings."""
         with full_f32():
-            return postprocess(self.model(images), tuple(images.shape[1:3]),
-                               self.cfg, **self.nms_kw)
+            with span("yolo.forward"):
+                out = self.model(images)
+            return postprocess(out, tuple(images.shape[1:3]), self.cfg,
+                               **self.nms_kw)
 
     def __call__(self, frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) uint8 frames on the model's device, rescaled by
@@ -168,7 +174,8 @@ class YoloPredictor:
         _check_frames(frames_u8)
         if self.int8_on_first_batch:
             self.calibrate_int8(frames_u8)
-        return self.forward(frames_u8.to(torch.float32) / 255.0)
+        with span("yolo.predict"):
+            return self.forward(frames_u8.to(torch.float32) / 255.0)
 
 
 def _check_frames(frames_u8: torch.Tensor) -> torch.Tensor:
@@ -193,12 +200,14 @@ def build_yolo_predictor(variables: Optional[Mapping] = None,
     first batch predicted (the reference's ``predict-bscan --quant
     int8``); uint8 frames (a (B, H, W, 3) batch or a sequence of them)
     calibrate now; a ``"quant"`` collection in ``variables`` sets the
-    reference's own scales."""
+    reference's own scales. On a card it readies the tracer's side stream
+    (``utils.profiling.Tracer.prepare``)."""
     dev = resolve_device(device)
     cfg = yolo_serving_config() if cfg is None else cfg
     model = YOLO(cfg, device=dev, seed=seed)
     if variables is not None:
         load_jax_variables(model, variables, device=dev)
+    TRACER.prepare(dev)
     pred = YoloPredictor(model=model, cfg=cfg, nms_kw=nms_kw)
     if isinstance(int8_calib, str):
         if int8_calib != "first":

@@ -1,5 +1,6 @@
 """pautdx_torch's CUDA kernels held to their plain PyTorch versions on the
-card, and the build that makes them.
+card, the build that makes them, and the tracer's spans placed on the
+device trace's axis.
 
 Imports neither JAX nor the JAX package, so that on a machine with the card
 it runs without them:
@@ -13,6 +14,7 @@ build tests run anywhere.
 import importlib.util
 import os
 import stat
+import time
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from pautdx_torch.ops import (_build, attention, gather, masks, qconv,
                               suppress)
+from pautdx_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -949,3 +952,95 @@ def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
         qconv.int8_conv(x.requires_grad_(), torch.randn(8, 8, 3, 3,
                                                         device=cuda),
                         1, 1, 1, 0.1)
+
+
+# ------------------------------------------- the tracer on the device axis
+
+
+def _card_only_trace(cuda, work):
+    """Run ``work`` under a profiler of the card alone, as the benchmark
+    traces a window: the device events (name, start µs, end µs)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        work()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _warm_host(cuda):
+    """A few launches and a short synchronize: the host's launch path warm,
+    as it is inside a serving loop."""
+    x = torch.zeros(16, device=cuda)
+    for _ in range(8):
+        x.add_(1)
+    torch.cuda.synchronize()
+
+
+def test_span_encloses_its_kernel_on_the_device_axis(cuda):
+    """A span around a matmul and a synchronize, placed on the device
+    trace's axis by the tracer's anchor, holds the matmul kernel within
+    20 µs at each end, and ends at most 20 µs after it."""
+    a = torch.randn(2048, 2048, device=cuda)
+    b = torch.randn(2048, 2048, device=cuda)
+    profiling.TRACER.prepare(cuda)
+    a @ b
+    _warm_host(cuda)
+
+    def work():
+        with profiling.span("test.matmul"):
+            a @ b
+            torch.cuda.synchronize()
+
+    device = _card_only_trace(cuda, work)
+    axis = profiling.TRACER.device_axis(device)
+    (r,) = [r for r in profiling.TRACER.spans() if r.name == "test.matmul"]
+    kernels = [(s, e) for n, s, e in device
+               if profiling.ANCHOR_KERNEL not in n and n != "test.matmul"]
+    assert axis is not None and kernels, device
+    lo, hi = min(s for s, _ in kernels), max(e for _, e in kernels)
+    start, end = axis(r.start_ns), axis(r.end_ns)
+    print(f"span starts {lo - start:.2f} µs before the kernel, ends "
+          f"{end - hi:.2f} µs after it")
+    assert start <= lo + 20.0 and end >= hi - 20.0
+    # after the synchronize the span's end follows the kernel's closely:
+    # this is what holds the anchor's absolute offset
+    assert 0.0 <= end - hi <= 20.0
+
+
+def test_anchors_two_seconds_apart_agree(cuda):
+    """Over a 2 s session of top-level spans, each a matmul and a
+    synchronize, the anchors the tracer lays every ``ANCHOR_EVERY_NS``
+    agree with the device trace at its start and at its end: on the device
+    axis, the spans of the first and of the last 50 end a median within
+    20 µs of their kernels' ends, and the two medians agree within 10 µs.
+    The device trace's clock drifts against every host clock, at a rate
+    that changes from session to session, so the anchors' raw offsets 2 s
+    apart need not agree; the axis follows them."""
+    a = torch.randn(2048, 2048, device=cuda)
+    profiling.TRACER.prepare(cuda)
+    _warm_host(cuda)
+
+    def work():
+        t_end = time.perf_counter() + 2.0
+        while time.perf_counter() < t_end:
+            with profiling.span("test.matmul"):
+                a @ a
+                torch.cuda.synchronize()
+
+    device = _card_only_trace(cuda, work)
+    axis = profiling.TRACER.device_axis(device)
+    spans = sorted(profiling.TRACER.spans(), key=lambda r: r.start_ns)
+    kernels = sorted((s, e) for n, s, e in device
+                     if profiling.ANCHOR_KERNEL not in n)
+    assert axis is not None and len(axis.at_us) >= 30, axis
+    assert len(kernels) == len(spans) > 100, (len(kernels), len(spans))
+    lags = [axis(r.end_ns) - e for r, (_, e) in zip(spans, kernels)]
+    offsets = profiling.TRACER.device_offsets_us(device)
+    first, last = float(np.median(lags[:50])), float(np.median(lags[-50:]))
+    print(f"{len(spans)} spans, {len(axis.at_us)} of {len(offsets)} anchors "
+          f"kept; raw offset 2 s on {offsets[-1] - offsets[1]:+.2f} µs; "
+          f"median end lag {first:.2f} µs first, {last:.2f} µs last")
+    assert abs(first) <= 20.0 and abs(last) <= 20.0
+    assert abs(last - first) <= 10.0
