@@ -39,9 +39,13 @@ Phases, one line each, in order; any failure exits non-zero:
    through the plain versions, detection sets matched by assignment; each
    forward must launch the attention kernel once and the gather thrice;
 6. the serving run: bf16 weights, folded uint8 stem, a (8, 128, 80, 80,
-   192) uint8 slab; counts every kernel's launches over that run, checks
-   the outputs are finite, and times frames/s (through the kernels and,
-   in turns with it, through the plain versions), each kernel at the
+   192) uint8 slab, through the eager forward; counts every kernel's
+   launches over that run, checks the outputs are finite, then serves the
+   slab through the served model's own calls, which replay a CUDA graph:
+   each step's outputs equal the eager run's bit for bit, one capture, one
+   replay a step, the per-op counters as eager; times frames/s (through
+   the kernels and, in turns with it, through the plain versions, eager;
+   then the replay), each kernel at the
    inputs that run gave it, its plain version and one library call that
    computes the same function (device times per call from
    ``torch.profiler``, the event-timed call through the wrapper beside
@@ -357,6 +361,7 @@ its bound come from HBM in the timed call too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -3324,6 +3329,7 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
     at every site shape of the two int8 paths, then the int8 D-FINE-nano
     serving run and the int8 YOLOv8n-seg predict run; returns the
     kernel's records."""
+    from pautdx_torch.models.vision.dfine import DFine
     from pautdx_torch.ops import masks, qconv, suppress
     from pautdx_torch.serve.throughput import (
         build_serving_model, make_streaming_forward, make_uint8_slab,
@@ -3439,7 +3445,8 @@ def int8_phases(torch, dev, counters: dict, wrappers: dict, none: dict,
     exact = all(torch.equal(out_k[k], out_p[k])
                 for k in ("logits", "pred_boxes"))
     dense = build_serving_model(device=dev, batch=BATCH, seed=0)
-    dstream = make_streaming_forward(dense.model)
+    dstream = make_streaming_forward(functools.partial(DFine.forward,
+                                                       dense.model))
     dstream(slab[:1])
     fps = {"int8": [], "bf16": []}
     for arm in ("int8", "bf16", "bf16", "int8") * 2:
@@ -4226,10 +4233,13 @@ def main() -> None:
     )
     from pautdx_torch.utils import profiling
 
-    # each kernel wrapper: its module and the counter it adds to
+    # each launch-path counter: its module and attribute; the kernel
+    # wrappers are the labels whose module has a plain version beside them
+    # (the served graph's captures and replays have none)
     counters = {label: (importlib.import_module(module), attr)
                 for label, module, attr in profiling.LAUNCH_COUNTERS}
-    wrappers = {name: mod for name, (mod, _) in counters.items()}
+    wrappers = {name: mod for name, (mod, _) in counters.items()
+                if hasattr(mod, f"{name}_reference")}
     none = dict.fromkeys(counters, 0)
 
     dev = torch.device("cuda")
@@ -4407,10 +4417,12 @@ def main() -> None:
           f"{launches[0]}, gather {launches[1]}", flush=True)
     del model, out_k, out_p
 
-    # 6. the serving run
+    # 6. the serving run, eager: the kernels' plain versions swap in by
+    # name, and the first inputs are taken at the wrappers
     served = build_serving_model(device=dev, batch=BATCH, seed=0)
     slab = make_uint8_slab(served.slab_shape(N_STEPS), seed=2, device=dev)
-    stream = make_streaming_forward(served.model)
+    eager = functools.partial(DFine.forward, served.model)
+    stream = make_streaming_forward(eager)
     stream(slab[:1])                       # warm-up: cuDNN plans, caches
     torch.cuda.synchronize()
     captured = {}
@@ -4427,6 +4439,34 @@ def main() -> None:
     check(tuple(logits.shape) == (BATCH, 150, 2)
           and tuple(boxes.shape) == (BATCH, 150, 4),
           f"serving outputs {tuple(logits.shape)} {tuple(boxes.shape)}")
+    # the served model's own calls replay a CUDA graph of that forward,
+    # captured at the first: bit for bit the eager kernel run's outputs
+    gstream = make_streaming_forward(served.model)
+    reset_counts(counters)
+    gstream(slab[:1])                      # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    gfirst = launch_counts(counters)
+    check(gfirst == dict(none, aifi_attention=2, onehot_gather=6,
+                         dfine_graph_capture=1, dfine_graph_replay=1),
+          f"the served model's first call counted {gfirst}, want one "
+          f"eager warm-up, one capture and one replay")
+    reset_counts(counters)
+    with torch.inference_mode():
+        replayed = [served.model(slab[step]) for step in range(N_STEPS)]
+        torch.cuda.synchronize()
+        gcounts = launch_counts(counters)
+        eager_out = [eager(slab[step]) for step in range(N_STEPS)]
+    check(gcounts == dict(none, aifi_attention=N_STEPS,
+                          onehot_gather=3 * N_STEPS,
+                          dfine_graph_replay=N_STEPS),
+          f"replayed serving run counted {gcounts}, want {N_STEPS} replays "
+          f"and {N_STEPS} and {3 * N_STEPS} kernel launches")
+    unequal = [(step, k) for step in range(N_STEPS)
+               for k in ("logits", "pred_boxes")
+               if not torch.equal(replayed[step][k], eager_out[step][k])]
+    check(not unequal, f"replayed outputs differ from the eager kernel "
+          f"run's at (step, output) {unequal}")
+    del replayed, eager_out
     # frames/s through the kernels, and through the plain versions for
     # comparison, in turns (kernels, plain, plain, kernels) three times:
     # the host-bound eager loop drifts from call to call
@@ -4437,13 +4477,17 @@ def main() -> None:
                 fps[arm].append(measure_fps(stream, slab))
         else:
             fps[arm].append(measure_fps(stream, slab))
+    fps_graph = [measure_fps(gstream, slab) for _ in range(3)]
     print(f"[6 serving] bench config, bf16, uint8 slab {tuple(slab.shape)}: "
           f"median {statistics.median(fps['kernels']):.1f} frames/s through "
           f"the kernels {[round(f, 1) for f in fps['kernels']]}, median "
           f"{statistics.median(fps['plain']):.1f} through the plain versions "
           f"{[round(f, 1) for f in fps['plain']]} ({N_STEPS} x {BATCH} "
-          f"frames x 3 calls each, CUDA events, eager, no CUDA graphs); "
-          f"launches over one slab: {counts}; outputs finite", flush=True)
+          f"frames x 3 calls each, CUDA events, eager); median "
+          f"{statistics.median(fps_graph):.1f} replaying the served CUDA "
+          f"graph {[round(f, 1) for f in fps_graph]}, its {N_STEPS} steps "
+          f"bit for bit the eager run's; launches over one slab: {counts} "
+          f"eager, {gcounts} replayed; outputs finite", flush=True)
 
     kernels = []
     # AIFI attention at the inputs the serving run gave it

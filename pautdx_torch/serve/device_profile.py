@@ -9,8 +9,8 @@
     python -m pautdx_torch.serve.device_profile signal   # HybridBinary served
     python -m pautdx_torch.serve.device_profile signal_train  # ... trained
 
-Builds the serving model of ``throughput.build_serving_model`` (an
-8 x 128-frame slab), the predictor of
+Builds the serving model of ``throughput.build_serving_model`` (run
+eagerly through ``DFine.forward``, an 8 x 128-frame slab), the predictor of
 ``yolo_predict.build_yolo_predictor`` (a 4 x 32-frame slab; YOLOv8n-seg,
 or ``yolo_config("yolov9c-seg")`` for ``yolo9c``), the f32
 predictor of ``dfine_predict.build_dfine_predictor`` (the HF-architecture
@@ -49,6 +49,7 @@ object with the same numbers. TF32 is off, as in
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import sys
@@ -63,6 +64,7 @@ from torch.autograd import DeviceType
 from pautdx_torch.device import resolve_device
 from pautdx_torch.losses import detr
 from pautdx_torch.models.signal import build_signal_model
+from pautdx_torch.models.vision.dfine import DFine
 from pautdx_torch.serve import dfine_predict, temporal_predict, yolo_predict
 from pautdx_torch.serve.endpoints import SignalEndpoint
 from pautdx_torch.serve.throughput import (
@@ -204,8 +206,10 @@ def _path(name: str, dev: torch.device
     spans: a serving path's streaming loop over a slab, one signal
     request, or one training step."""
     if name == "dfine":
+        # eager: the operator table needs the forward's own launches
         served = build_serving_model(device=dev, batch=128, seed=0)
-        stream = make_streaming_forward(served.model)
+        stream = make_streaming_forward(
+            functools.partial(DFine.forward, served.model))
         slab = make_uint8_slab(served.slab_shape(8), seed=1, device=dev)
         return lambda: stream(slab), 8, 128, None, {}
     if name in ("yolo", "yolo9c"):

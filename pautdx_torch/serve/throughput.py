@@ -8,7 +8,16 @@ frames, (B, 80, 80, 192) at 640px, with 1/255 folded into its weight.
 
 The streaming loop runs the model over the micro-batches of a
 (n_steps, B, ...) uint8 slab on the card; :func:`measure_fps` times it
-with CUDA events after a warm-up. CUDA graphs are later work.
+with CUDA events after a warm-up.
+
+The model ``build_serving_model`` returns is a ``serve.graphs.GraphedDFine``:
+a served call (eval mode, grad off, dense, on the card, no pre-hooks)
+replays a CUDA graph of the forward, captured at the first call of each
+input shape, in place of its ~1,000 eager launches, which paced the card
+at b128. Training, denoising, int8 serving and CPU calls run the eager
+forward; a caller that needs the eager launches themselves (an operator
+profile, kernels swapped for their plain versions) calls
+``DFine.forward(model, x)``.
 
 ``build_serving_model(int8_calib=...)`` serves int8 activations: the 69
 conv sites of the HGNet stages and the hybrid encoder calibrated
@@ -29,6 +38,7 @@ from torch import nn
 from pautdx_torch.device import resolve_device
 from pautdx_torch.models.vision.dfine import DFine, DFineConfig, dfine_nano
 from pautdx_torch.ops.qconv import set_int8_scales
+from pautdx_torch.serve.graphs import GraphedDFine
 from pautdx_torch.serve.quantize import Quant, calibrate_int8
 from pautdx_torch.utils.profiling import TRACER, span
 
@@ -129,11 +139,13 @@ def build_serving_model(device: Optional[Union[str, torch.device]] = None,
     float32 weight and statistic cast to bf16, then the uint8 stem fold.
     With ``int8_calib`` (uint8 wire batches on ``device``, a slab or a
     sequence of (B, 80, 80, 192) batches), the int8 sites are calibrated
-    on them and serve s8 x s8 -> s32 from then on. On a card it readies the
-    tracer's side stream (``utils.profiling.Tracer.prepare``)."""
+    on them and serve s8 x s8 -> s32 from then on. The model is a
+    ``serve.graphs.GraphedDFine``, whose served calls replay CUDA graphs
+    (int8 serving stays eager). On a card it readies the tracer's side
+    stream (``utils.profiling.Tracer.prepare``)."""
     dev = resolve_device(device)
     cfg = serving_config()
-    model = DFine(cfg, device=dev, seed=seed)
+    model = GraphedDFine(cfg, device=dev, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     fold_uint8_stem(cast_params_bf16(model))

@@ -18,8 +18,8 @@ session, and one every ``ANCHOR_EVERY_NS`` after, stamps it and launches
 an anchor kernel on a side stream, whose start in the device trace puts
 every span on the device's axis (:meth:`Tracer.device_axis`).
 :meth:`Tracer.summary` gives calls, total and self ms a span name, and
-the kernel-launch counters of ``pautdx_torch.ops`` a call of each
-top-level span.
+the launch-path counters (the kernel launches of ``pautdx_torch.ops``,
+the served graph's captures and replays) a call of each top-level span.
 """
 
 from __future__ import annotations
@@ -120,8 +120,9 @@ ANCHOR_EVERY_NS = 50_000_000
 # launch of the kernel can take 2 ms) and is left out
 ANCHOR_JITTER_US = 30.0
 CAPACITY = 1 << 16
-# the per-op kernel-launch counters of ``pautdx_torch.ops``: (label,
-# module, attribute)
+# the launch-path counters: the per-op kernel-launch counters of
+# ``pautdx_torch.ops``, then the served graph's (``serve/graphs.py``):
+# (label, module, attribute)
 LAUNCH_COUNTERS = (
     ("aifi_attention", "pautdx_torch.ops.attention", "LAUNCHES"),
     ("onehot_gather", "pautdx_torch.ops.gather", "LAUNCHES"),
@@ -133,6 +134,9 @@ LAUNCH_COUNTERS = (
     ("nms_suppress", "pautdx_torch.ops.suppress", "LAUNCHES"),
     ("assemble_masks", "pautdx_torch.ops.masks", "LAUNCHES"),
     ("int8_conv", "pautdx_torch.ops.qconv", "LAUNCHES"),
+    # captures and replays of the served D-FINE forward's CUDA graphs
+    ("dfine_graph_capture", "pautdx_torch.serve.graphs", "CAPTURES"),
+    ("dfine_graph_replay", "pautdx_torch.serve.graphs", "REPLAYS"),
 )
 
 
@@ -142,6 +146,15 @@ def launch_counts() -> Dict[str, int]:
     for label, module, attr in LAUNCH_COUNTERS:
         out[label] = getattr(sys.modules.get(module), attr, 0)
     return out
+
+
+def advance_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (label -> launches, of ``LAUNCH_COUNTERS``) to the
+    counters: a CUDA graph's replay runs the kernels its capture counted."""
+    for label, module, attr in LAUNCH_COUNTERS:
+        if counts.get(label):
+            mod = sys.modules[module]
+            setattr(mod, attr, getattr(mod, attr) + counts[label])
 
 
 class SpanRecord(NamedTuple):

@@ -954,6 +954,151 @@ def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
                         1, 1, 1, 0.1)
 
 
+# ------------------------------------------ the served D-FINE's CUDA graphs
+
+
+def _served_dfine(cuda):
+    """The serving model of ``build_serving_model`` and a forward hook on
+    its encoder class head that clones what it sees, in stream order."""
+    from pautdx_torch.serve import throughput
+    model = throughput.build_serving_model(device=cuda, batch=128).model
+    seen = []
+    model.model.enc_score_head.register_forward_hook(
+        lambda module, args, out: seen.append(out.clone()))
+    return model, seen
+
+
+def _wire(cuda, batch, seed):
+    from pautdx_torch.serve import throughput
+    return throughput.make_uint8_slab((batch, 80, 80, 192), seed=seed,
+                                      device=cuda)
+
+
+def _leaves(out):
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(out)
+    return leaves, spec
+
+
+def _counts():
+    return profiling.launch_counts()
+
+
+def test_served_graph_replays_the_eager_forward_bit_for_bit(cuda):
+    """At b128 and at b24 (a second capture in the same pool), the first
+    call (warm-up, capture, replay) and a later replay give every output of
+    the eager forward and the hooked encoder scores bit for bit. One
+    capture a shape, one replay a call; the per-op counters count the
+    warm-up and each replay: 1 attention and 3 one-hot gathers a forward."""
+    from pautdx_torch.models.vision.dfine import DFine
+    model, seen = _served_dfine(cuda)
+    for n, (batch, seed) in enumerate(((128, 11), (24, 12))):
+        x = _wire(cuda, batch, seed)
+        with torch.inference_mode():
+            eager = DFine.forward(model, x)
+            eager_enc = seen.pop()
+            c0 = _counts()
+            first = model(x)
+            first_enc = seen.pop()
+            c1 = _counts()
+            later = model(x)
+            later_enc = seen.pop()
+            c2 = _counts()
+        torch.cuda.synchronize()
+        assert len(model.graphs) == n + 1
+        want, spec = _leaves(eager)
+        for got in (first, later):
+            leaves, got_spec = _leaves(got)
+            assert got_spec == spec
+            for a, b in zip(leaves, want):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                assert torch.equal(a, b)
+        assert tuple(first["logits"].shape) == (batch, 150, 2)
+        assert torch.equal(first_enc, eager_enc)
+        assert torch.equal(later_enc, eager_enc)
+        d1 = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        d2 = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+        assert d1 == {"aifi_attention": 2, "onehot_gather": 6,
+                      "dfine_graph_capture": 1, "dfine_graph_replay": 1}
+        assert d2 == {"aifi_attention": 1, "onehot_gather": 3,
+                      "dfine_graph_replay": 1}
+
+
+def test_served_graph_outputs_and_hooks_follow_each_call(cuda):
+    """A call's returned tensors are unchanged after a later call on other
+    frames (the second under ``no_grad``, not ``inference_mode``), and the
+    hook that clones the encoder scores sees each call's own."""
+    from pautdx_torch.models.vision.dfine import DFine
+    model, seen = _served_dfine(cuda)
+    xa, xb = _wire(cuda, 32, 21), _wire(cuda, 32, 22)
+    with torch.inference_mode():
+        want_a = DFine.forward(model, xa)
+        want_b = DFine.forward(model, xb)
+    enc_a, enc_b = seen
+    seen.clear()
+    with torch.inference_mode():
+        got_a = model(xa)
+    with torch.no_grad():
+        got_b = model(xb)
+    torch.cuda.synchronize()
+    assert len(model.graphs) == 1
+    assert not torch.equal(want_a["logits"], want_b["logits"])
+    for got, want in ((got_a, want_a), (got_b, want_b)):
+        for a, b in zip(_leaves(got)[0], _leaves(want)[0]):
+            assert torch.equal(a, b)
+    assert torch.equal(seen[0], enc_a) and torch.equal(seen[1], enc_b)
+
+
+def test_served_graph_replay_is_one_forward_span_on_the_card_trace(cuda):
+    """Under the card-only profiler the benchmark uses, a replay is one
+    ``dfine.forward`` span with no children, its launches a call the
+    served forward's own, and the device trace names the port's kernels
+    inside the graph: 1 attention and 3 one-hot gather kernels."""
+    model, _ = _served_dfine(cuda)
+    x = _wire(cuda, 32, 31)
+    profiling.TRACER.prepare(cuda)
+    with torch.inference_mode():
+        model(x)
+    torch.cuda.synchronize()
+
+    def work():
+        with torch.inference_mode():
+            model(x)
+
+    profiling.TRACER.reset()
+    device = _card_only_trace(cuda, work)
+    assert [r.name for r in profiling.TRACER.spans()] == ["dfine.forward"]
+    assert profiling.TRACER.summary()["launches"]["dfine.forward"] == {
+        "aifi_attention": 1.0, "onehot_gather": 3.0,
+        "dfine_graph_replay": 1.0}
+    names = [n for n, _, _ in device]
+    assert sum("attn_bf16_kernel" in n for n in names) == 1, names
+    assert sum("onehot_tile" in n for n in names) == 3, names
+
+
+def test_served_model_with_a_pre_hook_runs_eagerly(cuda):
+    """A forward pre-hook on a submodule (``device_profile``'s spans):
+    every call runs the eager forward and nothing is captured."""
+    from pautdx_torch.models.vision.dfine import DFine
+    from pautdx_torch.serve import graphs
+    model, _ = _served_dfine(cuda)
+    calls = []
+    model.model.encoder.register_forward_pre_hook(
+        lambda module, args: calls.append(1))
+    x = _wire(cuda, 16, 41)
+    captures = graphs.CAPTURES
+    with torch.inference_mode():
+        assert graphs.eager_reason(model, x) == ("a forward pre-hook on a "
+                                                 "submodule")
+        got = model(x)
+        want = DFine.forward(model, x)
+    torch.cuda.synchronize()
+    assert model.graphs == {} and graphs.CAPTURES == captures
+    assert len(calls) == 2
+    for a, b in zip(_leaves(got)[0], _leaves(want)[0]):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------- the tracer on the device axis
 
 
